@@ -1,0 +1,178 @@
+"""Gaussian diffusion, sampling half (port of dddpm_tpu/models/ddpm.py).
+
+Tensors at this level are NHWC, the JAX package's layout; `eps_fn`
+takes (x_t NHWC, t (B,) int64) and returns eps in x_t's shape.
+
+Per-step noise is injectable.  By default the noise of step t is drawn
+from a torch.Generator seeded from (seed, t) alone, so running the chain
+as consecutive segments over slices of one ts equals the whole chain bit
+for bit.  A caller may instead pass `noise`: a callable t -> tensor, or a
+tensor holding one pre-drawn draw per entry of ts.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple, Union
+
+import torch
+
+from dddpm_tpu_torch.models.schedule import DiffusionSchedule, gather
+
+Noise = Union[None, Callable[[int], torch.Tensor], torch.Tensor]
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, key: int) -> int:
+    """A 63-bit generator seed for (seed, key): splitmix64 of the pair."""
+    z = (seed * 0x9E3779B97F4A7C15 + (key + 1) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 31)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 29)) & ((1 << 63) - 1)
+
+
+def step_noise(seed: int, key: int, shape, device) -> torch.Tensor:
+    """N(0, 1) float32 of `shape` that depends only on (seed, key, shape)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(fold_seed(seed, key))
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32)
+
+
+INIT_KEY = -1   # key of the chain's starting draw; step t uses key t
+
+
+def _segment(noise: Noise, a: int, b: int) -> Noise:
+    """The noise of steps a..b-1 of a chain (pre-drawn noise is sliced)."""
+    return noise if noise is None or callable(noise) else noise[a:b]
+
+
+class GaussianDiffusion:
+    """DDPM reverse process around an eps-predictor.
+
+    Args:
+      schedule: DiffusionSchedule, its tensors on the run's device.
+      eps_fn: (x_t NHWC, t (B,)) -> eps_hat.
+      sample_shape: (H, W, C) of the diffused space.
+    """
+
+    clip_range = (-1.0, 1.0)
+
+    def __init__(self, schedule: DiffusionSchedule, eps_fn: Callable,
+                 sample_shape: Tuple[int, int, int]):
+        self.schedule = schedule
+        self.eps_fn = eps_fn
+        self.sample_shape = tuple(sample_shape)
+        self.timesteps = schedule.timesteps
+        self.device = schedule.betas.device
+
+    # ---------------------------------------------------------------- q / p
+
+    def q_sample(self, x, t, eps):
+        """sqrt(ab_t) x + sqrt(1 - ab_t) eps."""
+        s = self.schedule
+        return (gather(s.sqrt_alphas_cumprod, t, x.ndim) * x
+                + gather(s.sqrt_one_minus_alphas_cumprod, t, x.ndim) * eps)
+
+    def predict_x_from_eps(self, x_t, t, eps, clip: bool = True):
+        """x_0 = sqrt(1/ab_t) x_t - sqrt(1/ab_t - 1) eps, clipped to [-1, 1]."""
+        s = self.schedule
+        x = (gather(s.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
+             - gather(s.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * eps)
+        return x.clamp(*self.clip_range) if clip else x
+
+    def q_posterior(self, x, x_t, t):
+        """q(x_{t-1} | x_t, x_0): mean, variance, clipped log-variance."""
+        s = self.schedule
+        mean = (gather(s.posterior_mean_coef1, t, x_t.ndim) * x
+                + gather(s.posterior_mean_coef2, t, x_t.ndim) * x_t)
+        return (mean, gather(s.posterior_variance, t, x_t.ndim),
+                gather(s.posterior_log_variance_clipped, t, x_t.ndim))
+
+    def p_mean_variance(self, x_t, t):
+        """p(x_{t-1} | x_t) through the eps-predictor, x_0 clipped."""
+        eps_hat = self.eps_fn(x_t, t).float()
+        x_recon = self.predict_x_from_eps(x_t, t, eps_hat, clip=True)
+        return self.q_posterior(x_recon, x_t, t)
+
+    # ------------------------------------------------------------- sampling
+
+    def p_sample(self, x_t, t, noise):
+        """One ancestral step; the noise is masked out where t == 0."""
+        mean, _, log_variance = self.p_mean_variance(x_t, t)
+        nonzero = (t != 0).to(x_t.dtype).reshape(
+            (t.shape[0],) + (1,) * (x_t.ndim - 1))
+        return mean + nonzero * torch.exp(0.5 * log_variance) * noise
+
+    def _noise(self, noise: Noise, seed: int, i: int, t: int, like):
+        if noise is None:
+            return step_noise(seed, t, like.shape, like.device)
+        if callable(noise):
+            return noise(t).to(like.device, torch.float32)
+        return noise[i].to(like.device, torch.float32)
+
+    @torch.no_grad()
+    def p_sample_chain(self, img, ts: Sequence[int], seed: int = 0,
+                       noise: Noise = None):
+        """p_sample over an explicit (descending) sequence of t."""
+        for i, t in enumerate(int(t) for t in ts):
+            t_b = torch.full((img.shape[0],), t, dtype=torch.int64,
+                             device=img.device)
+            img = self.p_sample(img, t_b, self._noise(noise, seed, i, t, img))
+        return img
+
+    @torch.no_grad()
+    def p_sample_chain_snapshots(self, img, ts: Sequence[int], every: int,
+                                 seed: int = 0, noise: Noise = None):
+        """p_sample_chain that also returns the state after every `every`
+        steps, stacked oldest first.  A remainder runs first so the
+        snapshots land on the trailing (low-t) steps."""
+        ts = [int(t) for t in ts]
+        if every <= 0:
+            raise ValueError(f"every must be positive, got {every}")
+        if not ts:
+            return img, img.new_zeros((0,) + tuple(img.shape))
+        every = min(every, len(ts))
+        rem = len(ts) % every
+        img = self.p_sample_chain(img, ts[:rem], seed,
+                                  _segment(noise, 0, rem))
+        snaps = []
+        for a in range(rem, len(ts), every):
+            img = self.p_sample_chain(img, ts[a:a + every], seed,
+                                      _segment(noise, a, a + every))
+            snaps.append(img)
+        return img, torch.stack(snaps)
+
+    def chain_ts(self, early_stop: Optional[int] = None) -> list:
+        """T-1 .. t_end, the reverse chain's timesteps."""
+        t_end = 0 if early_stop is None else early_stop
+        return list(range(self.timesteps - 1, t_end - 1, -1))
+
+    def init_latent(self, batch_size: int, seed: int = 0):
+        return step_noise(seed, INIT_KEY, (batch_size, *self.sample_shape),
+                          self.device)
+
+    def p_sample_loop(self, batch_size: int, seed: int = 0,
+                      early_stop: Optional[int] = None,
+                      every: Optional[int] = None, noise: Noise = None):
+        """The reverse chain T-1 .. early_stop from a seeded N(0, I) start;
+        with `every=k` also the snapshots after each k steps."""
+        img = self.init_latent(batch_size, seed)
+        ts = self.chain_ts(early_stop)
+        if every is None:
+            return self.p_sample_chain(img, ts, seed, noise)
+        return self.p_sample_chain_snapshots(img, ts, every, seed, noise)
+
+    def sample(self, batch_size: int = 16, seed: int = 0,
+               every: Optional[int] = None, early_stop: Optional[int] = None,
+               noise: Noise = None):
+        """A batch of samples; with `every=k`, (final, snapshots)."""
+        return self.p_sample_loop(batch_size, seed, early_stop, every, noise)
+
+    @torch.no_grad()
+    def reconstruct(self, x, n: int, seed: int = 0):
+        """One-step denoised reconstructions at n linearly spaced t."""
+        x = x[:n]
+        t = torch.linspace(0, self.timesteps - 1, n,
+                           device=x.device).to(torch.int64)
+        eps = step_noise(seed, INIT_KEY, x.shape, x.device)
+        x_t = self.q_sample(x, t, eps)
+        return self.predict_x_from_eps(x_t, t, self.eps_fn(x_t, t).float(),
+                                       clip=False)

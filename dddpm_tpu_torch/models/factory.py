@@ -1,0 +1,98 @@
+"""Model factory (port of dddpm_tpu/models/factory.py).
+
+build_model(config) wires the network and the diffusion process: plain
+DDPM runs the UNet at image resolution; dDDPM wraps it with the down/up
+samplers and runs the chain in latent space.  The autoencoder variant
+(config['ae_loss']) differs only in its training objective, so it
+samples through the same process.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch import nn
+
+from dddpm_tpu_torch.models.ddpm import GaussianDiffusion
+from dddpm_tpu_torch.models.dddpm import DownsampleDiffusion
+from dddpm_tpu_torch.models.init import init_params_
+from dddpm_tpu_torch.models.resample import get_downsampling, get_upsampling
+from dddpm_tpu_torch.models.schedule import DiffusionSchedule
+from dddpm_tpu_torch.models.unet import Unet, compute_dtype_of
+from dddpm_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def get_color_channels(dataset: str) -> int:
+    """Copy of dddpm_tpu/data/datasets.py:get_color_channels."""
+    if dataset in ("cifar10", "cifar100", "celeba", "celeba_hq",
+                   "celeba_hq_64", "synthetic"):
+        return 3
+    if dataset in ("mnist", "omniglot"):
+        return 1
+    raise ValueError(f"Dataset {dataset} does not have a color channel set")
+
+
+class DDDPMNet(nn.Module):
+    """UNet eps-predictor plus the down/up samplers (NCHW modules)."""
+
+    def __init__(self, config: dict):
+        super().__init__()
+        c = get_color_channels(config["dataset"])
+        size = config["image_size"]
+        dt = compute_dtype_of(config)
+        self.unet = Unet.from_config(config)
+        self.downsample = get_downsampling(config, (size, size, c), dt)
+        self.upsample = get_upsampling(config, (size, size, c), dt)
+
+
+def _nhwc(fn: Callable) -> Callable:
+    """Wraps an NCHW module call as NHWC -> NHWC (no copy for NHWC input)."""
+    def call(x, *args):
+        return fn(x.permute(0, 3, 1, 2), *args).permute(0, 2, 3, 1)
+    return call
+
+
+def build_model(config: dict, device: DeviceLike = None):
+    """Returns (net, process, init_fn, config).
+
+    The net is built on `device` (the CUDA card when None; pass 'cpu'
+    for the plain path) in eval mode.  init_fn(seed) re-draws every
+    parameter from a torch.Generator seeded with `seed`."""
+    dev = resolve_device(device)
+    config = dict(config)
+    color_channels = get_color_channels(config["dataset"])
+    size = config["image_size"]
+    schedule = DiffusionSchedule.create(config["beta_schedule"], config["T"],
+                                        device=dev)
+
+    if config["model"] == "ddpm":
+        config["unet_in"] = color_channels
+        net = Unet.from_config(config).to(dev).eval()
+        process = GaussianDiffusion(schedule, _nhwc(net),
+                                    (size, size, color_channels))
+    elif config["model"] == "dddpm":
+        unet_in = config["unet_in"]
+        if unet_in < color_channels:
+            raise ValueError(f"unet_in {unet_in} < color channels {color_channels}")
+        reduc = 2 ** config["n_downsamples"]
+        if size % reduc:
+            raise ValueError(f"image_size {size} is not divisible by the "
+                             f"downsample factor {reduc}")
+        z_size = size // reduc
+        net = DDDPMNet(config).to(dev).eval()
+        process = DownsampleDiffusion(
+            schedule, _nhwc(net.unet), _nhwc(net.downsample),
+            _nhwc(net.upsample), x_shape=(size, size, color_channels),
+            sample_shape=(z_size, z_size, unet_in),
+            force_latent=config["force_latent"])
+    else:
+        raise NotImplementedError(f"model {config['model']} not implemented")
+
+    def init_fn(seed: int) -> nn.Module:
+        return init_params_(net, torch.Generator().manual_seed(seed))
+
+    return net, process, init_fn, config
+
+
+def param_count(net: nn.Module) -> int:
+    return sum(p.numel() for p in net.parameters())

@@ -1,0 +1,110 @@
+"""The UNet epsilon-predictor (port of dddpm_tpu/models/unet.py).
+
+The lucidrains-style 4-level UNet with linear attention at every
+resolution, with the JAX package's quirks kept:
+
+- the expansive path has len(dim_mults)-1 levels, so the first (highest
+  resolution) skip connection is computed but never consumed;
+- every expansive level ends in an Upsample;
+- only the contracting path's ResnetBlocks get dropout.
+
+Blocks are held in flat ModuleLists in the order the JAX module creates
+them (ResnetBlock_i <-> resnets[i], PreNormLinearAttention_i <->
+attns[i], ...), which is what convert.py relies on.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from dddpm_tpu_torch.models.blocks import (
+    Block,
+    Conv2d,
+    Downsample,
+    PreNormLinearAttention,
+    ResnetBlock,
+    TimeMLP,
+    Upsample,
+)
+
+
+def compute_dtype_of(config: dict) -> torch.dtype:
+    return (torch.bfloat16 if config.get("compute_dtype") == "bfloat16"
+            else torch.float32)
+
+
+class Unet(nn.Module):
+    """UNet(dim, dim_mults) predicting eps(x_t, t) in x_t's shape (NCHW)."""
+
+    def __init__(self, dim: int = 128, in_channels: int = 3,
+                 dim_mults: Sequence[int] = (1, 2, 2, 2),
+                 dropout: float = 0.0, compute_dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        dims = [in_channels] + [dim * m for m in dim_mults]
+        in_out = list(zip(dims[:-1], dims[1:]))
+        self.levels = len(in_out)
+        dt = dict(compute_dtype=compute_dtype)
+
+        self.time_mlp = TimeMLP(dim)
+        resnets, attns, downs, ups = [], [], [], []
+        for ind, (dim_in, dim_out) in enumerate(in_out):
+            resnets += [ResnetBlock(dim_in, dim_out, dim, dropout=dropout, **dt),
+                        ResnetBlock(dim_out, dim_out, dim, dropout=dropout, **dt)]
+            attns.append(PreNormLinearAttention(dim_out, **dt))
+            if ind < self.levels - 1:
+                downs.append(Downsample(dim_out, **dt))
+        mid = dims[-1]
+        resnets.append(ResnetBlock(mid, mid, dim, **dt))
+        attns.append(PreNormLinearAttention(mid, **dt))
+        resnets.append(ResnetBlock(mid, mid, dim, **dt))
+        for dim_in, dim_out in reversed(in_out[1:]):
+            resnets += [ResnetBlock(dim_out * 2, dim_in, dim, **dt),
+                        ResnetBlock(dim_in, dim_in, dim, **dt)]
+            attns.append(PreNormLinearAttention(dim_in, **dt))
+            ups.append(Upsample(dim_in, **dt))
+        self.resnets = nn.ModuleList(resnets)
+        self.attns = nn.ModuleList(attns)
+        self.downsamples = nn.ModuleList(downs)
+        self.upsamples = nn.ModuleList(ups)
+        self.final_block = Block(dim, dim, **dt)
+        self.final_conv = Conv2d(dim, in_channels, 1, **dt)
+
+    @classmethod
+    def from_config(cls, config: dict) -> "Unet":
+        return cls(dim=config["unet_chan"], in_channels=config["unet_in"],
+                   dim_mults=tuple(config["unet_dims"]),
+                   dropout=config["unet_dropout"],
+                   compute_dtype=compute_dtype_of(config))
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """x: (B, C, H, W) in [-1, 1]; t: (B,) integer timesteps."""
+        t_emb = self.time_mlp(t)
+        orig_dtype = x.dtype
+        x = x.to(self.compute_dtype).contiguous(memory_format=torch.channels_last)
+        resnets, attns = iter(self.resnets), iter(self.attns)
+        downs, ups = iter(self.downsamples), iter(self.upsamples)
+
+        skips = []
+        for ind in range(self.levels):
+            x = next(resnets)(x, t_emb)
+            x = next(resnets)(x, t_emb)
+            x = next(attns)(x)
+            skips.append(x)
+            if ind < self.levels - 1:
+                x = next(downs)(x)
+
+        x = next(resnets)(x, t_emb)
+        x = next(attns)(x)
+        x = next(resnets)(x, t_emb)
+
+        for _ in range(self.levels - 1):
+            x = next(resnets)(x, t_emb, skip=skips.pop())
+            x = next(resnets)(x, t_emb)
+            x = next(attns)(x)
+            x = next(ups)(x)
+
+        x = self.final_conv(self.final_block(x))
+        return x.to(orig_dtype)
