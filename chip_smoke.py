@@ -8,20 +8,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 2. builds the kernels of dddpm_tpu_torch/csrc/ with nvcc for sm_90a, in
    parallel, and prints the ptxas report;
 3. holds each kernel against its plain PyTorch version on the card at
-   the x2 main path's shapes (B = 8), in bf16 and in f32 (TF32 off), and
-   times both with CUDA events;
+   the main paths' shapes, in bf16 and in f32 (TF32 off), and times both
+   with CUDA events: the attention block and the ConvResBlock forward at
+   the x2 sampling shapes (B = 8), the attention block and the
+   ConvResBlock backward and forward at the x3 training shapes;
 4. drives the x2 dDDPM sampling path through the port's entry points
    (build_model -> init_fn -> generate_samples, a chain cut to
    CHAIN_STEPS steps, then p_sample_chain over ts = [2, 1, 0]) with the
    launch counters zeroed just before and read just after, and checks
    the outputs, profiles three chain steps (device time by kernel
    category, idle share), and runs one short f32 chain on the card
-   against the plain path on the CPU.
+   against the plain path on the CPU;
+5. drives the x3 dDDPM training path (setup_trainer -> train(), the
+   config of bench.py:run_train, B = 32, accumulation x2, bf16, on
+   synthetic 256^2 data) for TRAIN_STEPS steps with the counters zeroed
+   just before and read just after, checks them against the recon rows
+   each micro-batch draws, checks the loss, the update and a checkpoint
+   round trip, times and profiles further steps, and runs one f32 train
+   step (B = 2) on the card against the plain path on the CPU.
 
-The last two lines are a JSON object with the kernels' numbers and
-{"ok": true, "device": {...}}.
+The last three lines are a JSON object with the kernels' numbers (one
+entry per kernel and path, its launches counted on that path's own run),
+the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -29,11 +40,19 @@ import time
 import numpy as np
 import torch
 
+from dddpm_tpu_torch.models.ddpm import draw_t, fold_seed
 from dddpm_tpu_torch.models.factory import build_model
 from dddpm_tpu_torch.ops import _build
 from dddpm_tpu_torch.ops import attention_block as ab
 from dddpm_tpu_torch.ops import convres as cr
 from dddpm_tpu_torch.sample import generate_samples
+from dddpm_tpu_torch.train import checkpoint
+from dddpm_tpu_torch.train.state import (
+    create_optimizer,
+    create_train_state,
+    make_train_step,
+)
+from dddpm_tpu_torch.train.trainer import setup_trainer
 
 # bench.py:_sample_config(batch_size=8): dDDPM x2 at CelebA-HQ 256^2
 X2_CONFIG = {
@@ -56,15 +75,45 @@ CONVRES_DECODE = [(128, 128, "up"), (256, 256, None), (256, 256, None)]
 CONVRES_DOWN = (256, 256, "down")
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-KERNELS = ["attention_block", "convres_fwd"]
+KERNELS = ["attention_block", "convres_fwd", "convres_bwd"]
 REPLACES = {
     "attn_ctx": "dddpm_tpu/ops/pallas/attention_block.py:148",
     "attn_out": "dddpm_tpu/ops/pallas/attention_block.py:210",
     "convres_fwd": "dddpm_tpu/ops/pallas/convres.py:250",
+    "convres_bwd": "dddpm_tpu/ops/pallas/convres.py:409",
 }
 SOURCES = {"attn_ctx": "dddpm_tpu_torch/csrc/attention_block.cu",
            "attn_out": "dddpm_tpu_torch/csrc/attention_block.cu",
-           "convres_fwd": "dddpm_tpu_torch/csrc/convres_fwd.cu"}
+           "convres_fwd": "dddpm_tpu_torch/csrc/convres_fwd.cu",
+           "convres_bwd": "dddpm_tpu_torch/csrc/convres_bwd.cu"}
+
+# bench.py:run_train: _sample_config(32) with n_downsamples 3, lr 2e-4:
+# dDDPM x3 at CelebA-HQ 256^2 widths, on synthetic 256^2 images
+X3_CONFIG = dict(X2_CONFIG, dataset="synthetic", batch_size=32,
+                 n_downsamples=3, lr=2e-4, grad_accum=2, ema_decay=0.995,
+                 prefetch=2, val_split=0, rnd_flip=False, recon_compact=True)
+B_TRAIN = 32
+TRAIN_STEPS = 3
+B_REC = 3            # recon rows of a micro-batch: 32 * t_rec_max / T = 3.2
+ATTN_TRAIN = (1024, 128)   # the one site above 512 tokens at a 32^2 latent
+# the ConvResBlocks that run fused in training, x's (H, W, scale), with
+# their launches per micro-batch that has recon rows: the downsampler's
+# 256^2 'down', 128^2 x2, 128^2 'down'; the upsampler's 128^2 x2, 128^2
+# 'up', 256^2 x2
+TRAIN_BLOCKS = [((256, 256, "down"), 1), ((128, 128, None), 4),
+                ((128, 128, "down"), 1), ((128, 128, "up"), 1),
+                ((256, 256, None), 2)]
+# per micro-batch: K2 runs these 9 at the recon rows under autograd and
+# the downsampler's 4 at the full batch without; K3 runs the 9
+FWD_PER_MB, BWD_PER_MB, FWD_NO_ROWS = 13, 9, 4
+# what the times of a kernels-line entry are per, by (kernel, path)
+PER = {("attn_ctx", "x2_sample"): f"x2 chain step at B={B}",
+       ("attn_out", "x2_sample"): f"x2 chain step at B={B}",
+       ("convres_fwd", "x2_sample"): f"x2 decode at B={B}"}
+PER_TRAIN = (f"x3 train step, B={B_TRAIN} x accumulation 2, {B_REC} recon "
+             f"rows per micro-batch")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORKDIR = os.path.join(ROOT, "results", "chip_smoke")   # git-ignored
 
 
 def log(*a):
@@ -98,26 +147,46 @@ def bound_ms(cost: dict, dtype) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_close(name, got, want, dtype):
+def accumulate(results, name, path, n, ms, plain_ms, bnd, cost, err):
+    """Adds n launches' kernel, plain and bound times and cost to the
+    kernels-line entry of (name, path)."""
+    acc = results.setdefault((name, path), dict(
+        ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, bytes=0,
+        flops=0, launches=0))
+    acc["ms"] += n * ms
+    acc["plain_ms"] += n * plain_ms
+    acc["bound_ms"] += n * bnd
+    acc["bytes"] += n * cost["bytes"]
+    acc["flops"] += n * cost["flops"]
+    acc["max_abs_err"] = max(acc["max_abs_err"], err)
+
+
+def tolerance(want, dtype) -> float:
     """bf16: 3% of the output's largest magnitude (each rounded stage may
     land one bf16 ulp, 0.4-0.8%, apart between kernel and plain
     version, and the error compounds over the stages); f32: 1e-3 of it
     (sums in another order, no TF32)."""
-    err = float((got.float() - want.float()).abs().max())
     scale = max(1.0, float(want.float().abs().max()))
-    tol = (3e-2 if dtype == torch.bfloat16 else 1e-3) * scale
+    return (3e-2 if dtype == torch.bfloat16 else 1e-3) * scale
+
+
+def check_close(name, got, want, dtype, quiet=False):
+    """Raises unless got is within tolerance(want, dtype) of want."""
+    err = float((got.float() - want.float()).abs().max())
+    tol = tolerance(want, dtype)
     ok = np.isfinite(err) and err <= tol
-    log(f"  {name}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-        f"{'ok' if ok else 'FAIL'}")
+    if not (quiet and ok):
+        log(f"  {name}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return err
 
 
-def attn_inputs(n, c, dtype, gen):
+def attn_inputs(n, c, dtype, gen, bsz=B):
     dev = "cuda"
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    x = r(B, n, c).to(dtype)
+    x = r(bsz, n, c).to(dtype)
     g = 1.0 + 0.1 * r(c)
     b = 0.1 * r(c)
     w_qkv = (r(c, 3 * ab.HIDDEN) / c ** 0.5).to(dtype)
@@ -127,11 +196,17 @@ def attn_inputs(n, c, dtype, gen):
 
 
 def phase_attention(results):
+    """K1 at the x2 sampling sites (B = 8; per chain step: five sites) and
+    at the x3 training site (B = 32, N = 1024, C = 128; per train step:
+    one launch per micro-batch)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sites = [(n, c, B, "x2_sample", ATTN_SITES.count((n, c)))
+             for n, c in sorted(set(ATTN_SITES), reverse=True)]
+    sites.append((ATTN_TRAIN[0], ATTN_TRAIN[1], B_TRAIN, "x3_train", 2))
     for dtype in (torch.bfloat16, torch.float32):
         log(f"attention block, {dtype}:")
-        for n, c in sorted(set(ATTN_SITES), reverse=True):
-            x, g, b, w_qkv, w_out, b_out = attn_inputs(n, c, dtype, gen)
+        for n, c, bsz, path, per_step in sites:
+            x, g, b, w_qkv, w_out, b_out = attn_inputs(n, c, dtype, gen, bsz)
             w_q, w_k, w_v = (w_qkv.reshape(c, 3, ab.HIDDEN)[:, i] for i in range(3))
             w_kv = torch.cat([w_k, w_v], dim=1).contiguous()
             ctx = ab.attention_ctx(x, g, b, w_kv)
@@ -145,7 +220,7 @@ def phase_attention(results):
                 block = ab.attention_block(x, g, b, w_qkv, w_out, b_out)
             check_close(f"block N={n} C={c} vs reference_impl", block,
                         ab.reference_impl(x, g, b, w_qkv, w_out, b_out), dtype)
-            costs = ab.cost(B, n, c, x.element_size())
+            costs = ab.cost(bsz, n, c, x.element_size())
             timings = {
                 "attn_ctx": (lambda: ab.attention_ctx(x, g, b, w_kv),
                              lambda: ab.ctx_reference(x, g, b, w_kv), e_ctx),
@@ -156,26 +231,18 @@ def phase_attention(results):
             for name, (kern, plain, err) in timings.items():
                 ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 20)
                 bnd, by = bound_ms(costs[name], dtype)
-                log(f"    {name} N={n} C={c} {dtype}: kernel {ms * 1e3:.1f} us, "
-                    f"plain {plain_ms * 1e3:.1f} us, bound {bnd * 1e3:.1f} us "
-                    f"({by})")
+                log(f"    {name} B={bsz} N={n} C={c} {dtype}: kernel "
+                    f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+                    f"{bnd * 1e3:.1f} us ({by})")
                 if dtype == torch.bfloat16:
-                    sites = ATTN_SITES.count((n, c))
-                    acc = results.setdefault(name, dict(
-                        ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
-                        bytes=0, flops=0))
-                    acc["ms"] += sites * ms
-                    acc["plain_ms"] += sites * plain_ms
-                    acc["bound_ms"] += sites * bnd
-                    acc["bytes"] += sites * costs[name]["bytes"]
-                    acc["flops"] += sites * costs[name]["flops"]
-                    acc["max_abs_err"] = max(acc["max_abs_err"], err)
+                    accumulate(results, name, path, per_step, ms, plain_ms,
+                               bnd, costs[name], err)
 
 
-def convres_inputs(h, w, dtype, gen):
+def convres_inputs(h, w, dtype, gen, bsz=B):
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     c, cm = 64, cr.MID_CHANNELS
-    return (r(B, h, w, c).to(dtype),
+    return (r(bsz, h, w, c).to(dtype),
             r(1, 1, c, cm) / c ** 0.5, 0.1 * r(cm) + 1.0,
             r(3, 3, cm, cm) / (9 * cm) ** 0.5, 0.1 * r(cm) + 1.0,
             r(3, 3, cm, cm) / (9 * cm) ** 0.5, 0.1 * r(cm),
@@ -203,15 +270,63 @@ def phase_convres(results):
                 f"{bnd * 1e3:.1f} us ({by})")
             if dtype == torch.bfloat16 and scale != "down":
                 sites = sum(1 for s in CONVRES_DECODE if s == (h, w, scale))
-                acc = results.setdefault("convres_fwd", dict(
-                    ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
-                    bytes=0, flops=0))
-                acc["ms"] += sites * ms
-                acc["plain_ms"] += sites * plain_ms
-                acc["bound_ms"] += sites * bnd
-                acc["bytes"] += sites * cost["bytes"]
-                acc["flops"] += sites * cost["flops"]
-                acc["max_abs_err"] = max(acc["max_abs_err"], err)
+                accumulate(results, "convres_fwd", "x2_sample", sites, ms,
+                           plain_ms, bnd, cost, err)
+
+
+GRAD_NAMES = ["dx", "dw1", "db1", "dw2", "db2", "dw3", "db3", "dw4", "db4"]
+
+
+def phase_convres_bwd(results):
+    """K3 against backward_reference at the five training shapes (B_REC
+    recon rows), bf16 and f32; times both.  Also checks and times K2 at
+    the training shapes (bf16): its 9 launches at B_REC and 4 at B_TRAIN
+    per micro-batch.  Both per train step of two micro-batches."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for dtype in (torch.bfloat16, torch.float32):
+        log(f"ConvResBlock backward (K3), B={B_REC}, {dtype}:")
+        for (h, w, scale), n in TRAIN_BLOCKS:
+            args = convres_inputs(h, w, dtype, gen, bsz=B_REC)
+            dy = torch.randn((B_REC, h, w, 64), generator=gen,
+                             device="cuda").to(dtype)
+            got = cr._bwd_kernel(*args, dy, True)
+            want = cr.backward_reference(*args, dy, True)
+            errs = [check_close(f"convres_bwd {h}x{w} ({scale}) {name}", g, t,
+                                dtype, quiet=True)
+                    for name, g, t in zip(GRAD_NAMES, got, want)]
+            err = max(errs)
+            share = max(e / tolerance(t, dtype) for e, t in zip(errs, want))
+            ms = cuda_ms(lambda: cr._bwd_kernel(*args, dy, True), 3)
+            plain_ms = cuda_ms(lambda: cr.backward_reference(*args, dy, True), 3)
+            cost = cr.cost_bwd(B_REC, h, w, 64, args[0].element_size())
+            bnd, by = bound_ms(cost, dtype)
+            log(f"    convres_bwd {h}x{w} ({scale}) {dtype}: kernel "
+                f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+                f"{bnd * 1e3:.1f} us ({by}); 9 gradients ok, max abs err "
+                f"{err:.3e}, at most {share:.1%} of its tolerance")
+            if dtype == torch.bfloat16:
+                # per train step: 2 micro-batches, n launches of this shape
+                accumulate(results, "convres_bwd", "x3_train", 2 * n, ms,
+                           plain_ms, bnd, cost, err)
+    with torch.no_grad():
+        for bsz, blocks in ((B_REC, TRAIN_BLOCKS), (B_TRAIN, TRAIN_BLOCKS[:3])):
+            for (h, w, scale), n in blocks:
+                n = 2 if (bsz == B_TRAIN and scale is None) else n
+                args = convres_inputs(h, w, torch.bfloat16, gen, bsz=bsz)
+                run = lambda: cr.fused_convres_block(*args, residual=True,
+                                                     scale=scale)
+                plain = lambda: cr.reference_impl(*args, residual=True,
+                                                  scale=scale)
+                err = check_close(f"convres B={bsz} {h}x{w} scale={scale}",
+                                  run(), plain(), torch.bfloat16, quiet=True)
+                cost = cr.cost(bsz, h, w, 64, 2, scale)
+                bnd, _ = bound_ms(cost, torch.bfloat16)
+                accumulate(results, "convres_fwd", "x3_train", 2 * n,
+                           cuda_ms(run, 3), cuda_ms(plain, 3), bnd, cost, err)
+    k2 = results[("convres_fwd", "x3_train")]
+    log(f"  K2 at the training shapes, per train step (26 launches, bf16): "
+        f"kernel {k2['ms']:.2f} ms, plain {k2['plain_ms']:.2f} ms, "
+        f"bound {k2['bound_ms']:.3f} ms, max abs err {k2['max_abs_err']:.3e}")
 
 
 def reset_counts():
@@ -246,8 +361,9 @@ def phase_main_path(results):
     assert launched["attn_ctx"] == 5 * CHAIN_STEPS, launched
     assert launched["attn_out"] == 5 * CHAIN_STEPS, launched
     assert launched["convres_fwd"] == 3, launched
-    for name in results:
-        results[name]["launches"] = launched[name]
+    for (name, path), r in results.items():
+        if path == "x2_sample":
+            r["launches"] = launched[name]
     ms_step = timing["total_s"] * 1e3 / CHAIN_STEPS
     log(f"  {timing['total_s']:.3f} s for {CHAIN_STEPS} steps + decode: "
         f"{ms_step:.2f} ms/step (decode included), "
@@ -272,7 +388,8 @@ def phase_main_path(results):
 def _category(name: str) -> str:
     n = name.lower()
     for key, cat in (("ctx_partial", "K1a attn_ctx"), ("ctx_reduce", "K1a attn_ctx"),
-                     ("out_kernel", "K1b attn_out"), ("convres", "K2 convres"),
+                     ("out_kernel", "K1b attn_out"),
+                     ("convres_bwd", "K3 convres_bwd"), ("convres", "K2 convres"),
                      ("group_norm", "group norm"), ("gemm", "gemm/conv"),
                      ("conv", "gemm/conv"), ("xmma", "gemm/conv"),
                      ("cutlass", "gemm/conv"), ("nchw", "layout copy"),
@@ -285,24 +402,22 @@ def _category(name: str) -> str:
     return "other"
 
 
-def phase_profile(process, steps: int = 3):
-    """Where a chain step's device time goes: torch.profiler over
-    `steps` steps at B; kernel time by category, device-busy share."""
+def device_profile(run, steps: int, label: str):
+    """torch.profiler over `run` (which takes `steps` steps): wall and
+    device-busy ms per step, the device's idle share of its window, and
+    kernel time by category and by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    z = process.init_latent(B, seed=11)
-    ts = list(range(900, 900 - steps, -1))
-    process.p_sample_chain(z, ts, seed=11)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        process.p_sample_chain(z, ts, seed=11)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        log("profile: the profiler saw no device time (not measured)")
+        log(f"profile, {label}: the profiler saw no device time (not measured)")
         return
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, (cur_s, cur_e) = 0.0, spans[0]
@@ -319,10 +434,10 @@ def phase_profile(process, steps: int = 3):
         cat = _category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + e.time_range.elapsed_us()
     total = sum(by_cat.values())
-    log(f"profile, {steps} chain steps at B={B} (bf16): wall "
-        f"{wall_ms / steps:.2f} ms/step, device busy {busy / 1e3 / steps:.2f} "
-        f"ms/step, idle share of the device window "
-        f"{1 - busy / window:.3f}, {len(kernels) // steps} kernels/step")
+    log(f"profile, {label}: wall {wall_ms / steps:.2f} ms/step, device busy "
+        f"{busy / 1e3 / steps:.2f} ms/step, idle share of the device window "
+        f"{1 - busy / window:.3f}, {len(kernels) // steps} kernels/step "
+        f"[{card_line()}]")
     for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         log(f"  {cat:14s} {us / 1e3 / steps:8.3f} ms/step  {us / total:6.1%}")
     by_name: dict = {}
@@ -331,6 +446,15 @@ def phase_profile(process, steps: int = 3):
     log("  top kernels:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {us / 1e3 / steps:7.3f} ms/step  {name[:100]}")
+
+
+def phase_profile(process, steps: int = 3):
+    """Where a chain step's device time goes, over `steps` steps at B."""
+    z = process.init_latent(B, seed=11)
+    ts = list(range(900, 900 - steps, -1))
+    process.p_sample_chain(z, ts, seed=11)
+    device_profile(lambda: process.p_sample_chain(z, ts, seed=11), steps,
+                   f"{steps} chain steps at B={B} (bf16)")
 
 
 def phase_against_cpu(net_bf16):
@@ -361,6 +485,144 @@ def phase_against_cpu(net_bf16):
     assert ez < 1e-3 and ex < 1e-3
 
 
+def recon_rows(seed: int, steps: int, start: int = 0) -> list:
+    """Rows under the recon gate of each (step, micro-batch), from the t
+    the trainer draws: key fold_seed(fold_seed(seed, step), i)."""
+    T, gate = X3_CONFIG["T"], X3_CONFIG["t_rec_max"]
+    return [[int((draw_t(fold_seed(fold_seed(seed, s), i), B_TRAIN, T)
+                  < gate).sum()) for i in range(2)]
+            for s in range(start, start + steps)]
+
+
+def pick_seed() -> tuple:
+    """The first seed whose TRAIN_STEPS steps have a micro-batch with
+    recon rows and one without, so both launch counts are checked."""
+    for seed in range(1000):
+        rows = recon_rows(seed, TRAIN_STEPS)
+        flat = [n for r in rows for n in r]
+        if min(flat) == 0 and max(flat) > 0:
+            return seed, rows
+    raise AssertionError("no seed gives both kinds of micro-batch")
+
+
+def phase_train(results):
+    """The x3 training path through setup_trainer -> train(), with the
+    launch counters zeroed just before and read just after."""
+    seed, rows = pick_seed()
+    trainer, config = setup_trainer(dict(X3_CONFIG, n_steps=TRAIN_STEPS),
+                                    mute=True, seed=seed, workdir=WORKDIR)
+    log(f"main path: x3 dDDPM training, B={B_TRAIN} x accumulation 2, bf16, "
+        f"{config['model_size']} params, seed {seed}: recon rows per "
+        f"micro-batch {rows}")
+    before = {k: p.detach().clone() for k, p in trainer.state.params.items()}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    losses = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launched = counts()
+    log(f"  launches: {launched} in {TRAIN_STEPS} steps ({wall:.2f} s, the "
+        f"first step's set-up included)")
+    flat = [n for r in rows for n in r]
+    want = {"attn_ctx": 2 * TRAIN_STEPS, "attn_out": 2 * TRAIN_STEPS,
+            "convres_fwd": sum(FWD_PER_MB if n else FWD_NO_ROWS for n in flat),
+            "convres_bwd": sum(BWD_PER_MB if n else 0 for n in flat)}
+    assert launched == want, (launched, want)
+    for (name, path), r in results.items():
+        if path == "x3_train":
+            r["launches"] = launched[name]
+    assert len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), losses
+    unchanged = [k for k, p in trainer.state.params.items()
+                 if torch.equal(p, before[k])]
+    assert not unchanged, f"params not updated: {unchanged[:5]}"
+    log(f"  train_obj {losses}; every one of {len(before)} param tensors "
+        f"updated")
+
+    # checkpoint round trip into a fresh state
+    net2, _, _, _ = build_model(X3_CONFIG)
+    state2 = create_train_state(net2, create_optimizer(net2, X3_CONFIG["lr"]),
+                                seed=0)
+    checkpoint.restore_checkpoint(trainer.checkpoint_dir, state2)
+    assert state2.step == TRAIN_STEPS and state2.seed == seed
+    for k, p in trainer.state.params.items():
+        assert torch.equal(p, state2.params[k]), k
+        assert torch.equal(trainer.state.ema_params[k], state2.ema_params[k]), k
+    for p, p2 in zip(trainer.opt.params, state2.opt.params):
+        st, st2 = trainer.opt.adam.state[p], state2.opt.adam.state[p2]
+        assert torch.equal(st["exp_avg"], st2["exp_avg"])
+        assert torch.equal(st["exp_avg_sq"], st2["exp_avg_sq"])
+    ema = checkpoint.load_model_params(trainer.checkpoint_dir)
+    assert all(torch.equal(ema[k].cuda(), v)
+               for k, v in trainer.state.ema_params.items())
+    log("  checkpoint round trip: params, EMA, Adam moments, step, seed equal")
+    del net2, state2
+
+    # steady steps: a warm-up first (each new count of recon rows gives
+    # the plain-path convs new shapes, whose first call sets cuDNN up),
+    # then a timed window and one profiled step
+    n_warm, n_timed = 6, 10
+    start = TRAIN_STEPS + n_warm
+    timed_rows = recon_rows(seed, n_timed + 1, start=start)
+    for _ in range(n_warm):
+        trainer.train_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        trainer.train_step()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_timed
+    mean_rows = np.mean(timed_rows[:n_timed])
+    log(f"  timed {n_timed} steps after {n_warm} warm-up steps (recon rows "
+        f"{timed_rows[:n_timed]}, mean {mean_rows:.2f} per micro-batch): "
+        f"{dt * 1e3:.1f} ms/step, {2 * B_TRAIN / dt:.1f} train imgs/s "
+        f"[{card_line()}]")
+    device_profile(trainer.train_step, 1,
+                   f"1 train step at B={B_TRAIN} x 2 (bf16), recon rows "
+                   f"{timed_rows[n_timed]}")
+    return trainer
+
+
+def phase_train_against_cpu(seed: int = 5):
+    """One f32 train step (B = 2, accumulation 2) on the card (the
+    kernels) against the same weights, batch, t and eps on the CPU (the
+    plain path): the mean clipped gradients and the metrics."""
+    cfg = dict(X3_CONFIG, compute_dtype="float32", unet_dropout=0.0,
+               batch_size=2)
+    net_gpu, proc_gpu, init_fn, _ = build_model(cfg)
+    init_fn(seed)
+    net_cpu, proc_cpu, _, _ = build_model(cfg, device="cpu")
+    net_cpu.load_state_dict({k: v.cpu() for k, v in net_gpu.state_dict().items()})
+    gen = torch.Generator().manual_seed(seed)
+    batch = torch.rand((2, 2, 256, 256, 3), generator=gen) * 2 - 1
+    t = torch.tensor([[3, 700], [57, 12]])     # recon rows in both
+    eps = torch.randn((2, 2, 32, 32, 8), generator=gen)
+    grads, metrics = {}, {}
+    for dev, net, proc in (("cuda", net_gpu, proc_gpu), ("cpu", net_cpu, proc_cpu)):
+        net.train()
+        state = create_train_state(net, create_optimizer(net, cfg["lr"]), seed=0)
+        reset_counts()
+        m = make_train_step(proc, 2, cfg["ema_decay"])(
+            state, batch.to(dev), t=t, eps=eps.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            c = counts()
+            assert (c["convres_fwd"], c["convres_bwd"], c["attn_ctx"]) == (26, 18, 2), c
+        grads[dev] = {k: p.grad.detach().cpu() for k, p in state.params.items()}
+        metrics[dev] = {k: float(v) for k, v in m.items()}
+    err = max(float((grads["cuda"][k] - g).abs().max())
+              for k, g in grads["cpu"].items())
+    scale = max(float(g.abs().max()) for g in grads["cpu"].values())
+    rel = {k: abs(metrics["cuda"][k] - v) / max(abs(v), 1e-12)
+           for k, v in metrics["cpu"].items()}
+    log(f"f32 train step, card vs CPU plain path (B=2, accumulation 2): "
+        f"grads max_abs_err {err:.3e} of max |g| {scale:.3e}; metrics "
+        f"{metrics['cuda']} vs {metrics['cpu']}, rel err "
+        f"{max(rel.values()):.2e} (tol: grads 1e-3 of max |g|, metrics "
+        f"1e-4 relative: f32 sums over 256^2 pixels in other orders)")
+    assert err <= 1e-3 * scale and max(rel.values()) <= 1e-4
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -381,12 +643,21 @@ def main() -> int:
     results: dict = {}
     phase_attention(results)
     phase_convres(results)
+    phase_convres_bwd(results)
     net, process = phase_main_path(results)
     phase_profile(process)
     phase_against_cpu(net)
+    del net, process
+    phase_train(results)
+    phase_train_against_cpu()
+    log(f"chip_smoke: {time.time() - t0:.1f} s after the build started")
 
+    # one entry per kernel and path: launches from that path's own zeroed
+    # run, times and bound at that path's shapes, per what "per" says
+    assert all(r["launches"] > 0 for r in results.values()), results
     kernels = [{
-        "name": name, "route": "cuda", "source": SOURCES[name],
+        "name": name, "path": path, "per": PER.get((name, path), PER_TRAIN),
+        "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": r["launches"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -394,7 +665,7 @@ def main() -> int:
                      >= r["flops"] / PEAK_FLOPS[torch.bfloat16]
                      else "operations"),
         "library_ms": None,
-    } for name, r in results.items()]
+    } for (name, path), r in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

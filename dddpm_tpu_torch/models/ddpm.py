@@ -1,4 +1,5 @@
-"""Gaussian diffusion, sampling half (port of dddpm_tpu/models/ddpm.py).
+"""Gaussian diffusion (port of dddpm_tpu/models/ddpm.py): the sampling
+chain and the training objective.
 
 Tensors at this level are NHWC, the JAX package's layout; `eps_fn`
 takes (x_t NHWC, t (B,) int64) and returns eps in x_t's shape.
@@ -8,6 +9,13 @@ from a torch.Generator seeded from (seed, t) alone, so running the chain
 as consecutive segments over slices of one ts equals the whole chain bit
 for bit.  A caller may instead pass `noise`: a callable t -> tensor, or a
 tensor holding one pre-drawn draw per entry of ts.
+
+The training draws (a micro-batch's t and eps) are injectable the same
+way: `loss_fn(x, key, t=None, eps=None)`.  By default t comes from a CPU
+torch.Generator seeded fold_seed(key, 0), so the host knows which rows
+fall under the recon gate without waiting for the device, and eps from
+a generator on x's device seeded fold_seed(key, 1); the trainer's key is
+fold_seed(fold_seed(seed, step), micro_batch).
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import torch
 
 from dddpm_tpu_torch.models.schedule import DiffusionSchedule, gather
+from dddpm_tpu_torch.ops.math import l2_loss, reduce_mean, reduce_sum
 
 Noise = Union[None, Callable[[int], torch.Tensor], torch.Tensor]
 _MASK64 = (1 << 64) - 1
@@ -37,6 +46,26 @@ def step_noise(seed: int, key: int, shape, device) -> torch.Tensor:
 
 
 INIT_KEY = -1   # key of the chain's starting draw; step t uses key t
+OBJECTIVE_NAMES = ("simple", "hybrid", "vlb")
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """t on `device`; a host tensor goes to the card through pinned
+    memory without a wait (a pageable copy would wait for the stream)."""
+    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def draw_t(key: int, n: int, timesteps: int) -> torch.Tensor:
+    """A micro-batch's timesteps, uniform in [0, T), drawn on the CPU."""
+    gen = torch.Generator().manual_seed(fold_seed(key, 0))
+    return torch.randint(0, timesteps, (n,), generator=gen, dtype=torch.int64)
+
+
+def draw_eps(key: int, shape, device) -> torch.Tensor:
+    """A micro-batch's N(0, 1) float32 noise, drawn on `device`."""
+    return step_noise(key, 1, shape, device)
 
 
 def _segment(noise: Noise, a: int, b: int) -> Noise:
@@ -51,17 +80,27 @@ class GaussianDiffusion:
       schedule: DiffusionSchedule, its tensors on the run's device.
       eps_fn: (x_t NHWC, t (B,)) -> eps_hat.
       sample_shape: (H, W, C) of the diffused space.
+      loss_type: 'simple' | 'vlb' | 'hybrid'.
+      loss_flat: 'sum' | 'mean' flattening of the per-pixel L2.
     """
 
+    lambda_ = 1e-4
     clip_range = (-1.0, 1.0)
 
     def __init__(self, schedule: DiffusionSchedule, eps_fn: Callable,
-                 sample_shape: Tuple[int, int, int]):
+                 sample_shape: Tuple[int, int, int], loss_type: str = "simple",
+                 loss_flat: str = "sum"):
+        if loss_type not in OBJECTIVE_NAMES:
+            raise ValueError(f"loss_type must be one of {OBJECTIVE_NAMES}")
+        if loss_flat not in ("sum", "mean"):
+            raise ValueError("loss_flat must be 'sum' or 'mean'")
         self.schedule = schedule
         self.eps_fn = eps_fn
         self.sample_shape = tuple(sample_shape)
         self.timesteps = schedule.timesteps
         self.device = schedule.betas.device
+        self.loss_type = loss_type
+        self.flatten_loss = reduce_sum if loss_flat == "sum" else reduce_mean
 
     # ---------------------------------------------------------------- q / p
 
@@ -176,3 +215,40 @@ class GaussianDiffusion:
         x_t = self.q_sample(x, t, eps)
         return self.predict_x_from_eps(x_t, t, self.eps_fn(x_t, t).float(),
                                        clip=False)
+
+    # --------------------------------------------------------------- losses
+
+    def loss_ddpm(self, eps, eps_hat, t):
+        """Reduce the L2 noise-prediction error to the scalar objective."""
+        loss = self.flatten_loss(l2_loss(eps, eps_hat))
+        w = self.schedule.vlb_weights[t]
+        if self.loss_type == "simple":
+            return loss.mean()
+        if self.loss_type == "vlb":
+            return (w * loss).mean()
+        return (loss + self.lambda_ * w * loss).mean()   # hybrid
+
+    def losses(self, x, t, eps):
+        """Single-step training objective at timesteps t with noise eps."""
+        t = to_device(t, x.device)
+        x_t = self.q_sample(x, t, eps)
+        return self.loss_ddpm(eps, self.eps_fn(x_t, t), t)
+
+    def t_sample(self, key: int, n: int) -> torch.Tensor:
+        """Uniform timesteps in [0, T), on the CPU."""
+        return draw_t(key, n, self.timesteps)
+
+    def _draws(self, x, key, t, eps):
+        """(t, eps): t where it was drawn or given, eps on x's device."""
+        if t is None:
+            t = self.t_sample(key, x.shape[0])
+        if eps is None:
+            eps = draw_eps(key, (x.shape[0], *self.sample_shape), x.device)
+        return t, eps.to(x.device)
+
+    def loss_fn(self, x, key: int = 0, t: Optional[torch.Tensor] = None,
+                eps: Optional[torch.Tensor] = None):
+        """Forward pass at drawn (or given) t and eps: (objective, metrics)."""
+        t, eps = self._draws(x, key, t, eps)
+        obj = self.losses(x, t, eps)
+        return obj, {"train_obj": obj}

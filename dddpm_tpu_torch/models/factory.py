@@ -2,9 +2,8 @@
 
 build_model(config) wires the network and the diffusion process: plain
 DDPM runs the UNet at image resolution; dDDPM wraps it with the down/up
-samplers and runs the chain in latent space.  The autoencoder variant
-(config['ae_loss']) differs only in its training objective, so it
-samples through the same process.
+samplers and runs the chain in latent space; config['ae_loss'] selects
+the autoencoder variant, whose training objective detaches z.
 """
 from __future__ import annotations
 
@@ -13,23 +12,17 @@ from typing import Callable
 import torch
 from torch import nn
 
+from dddpm_tpu_torch.data.datasets import get_color_channels
 from dddpm_tpu_torch.models.ddpm import GaussianDiffusion
-from dddpm_tpu_torch.models.dddpm import DownsampleDiffusion
+from dddpm_tpu_torch.models.dddpm import (
+    DownsampleDiffusion,
+    DownsampleDiffusionAutoencoder,
+)
 from dddpm_tpu_torch.models.init import init_params_
 from dddpm_tpu_torch.models.resample import get_downsampling, get_upsampling
 from dddpm_tpu_torch.models.schedule import DiffusionSchedule
 from dddpm_tpu_torch.models.unet import Unet, compute_dtype_of
 from dddpm_tpu_torch.utils.device import DeviceLike, resolve_device
-
-
-def get_color_channels(dataset: str) -> int:
-    """Copy of dddpm_tpu/data/datasets.py:get_color_channels."""
-    if dataset in ("cifar10", "cifar100", "celeba", "celeba_hq",
-                   "celeba_hq_64", "synthetic"):
-        return 3
-    if dataset in ("mnist", "omniglot"):
-        return 1
-    raise ValueError(f"Dataset {dataset} does not have a color channel set")
 
 
 class DDDPMNet(nn.Module):
@@ -53,7 +46,7 @@ def _nhwc(fn: Callable) -> Callable:
 
 
 def build_model(config: dict, device: DeviceLike = None):
-    """Returns (net, process, init_fn, config).
+    """Returns (net, process, init_fn, config), config with model_size.
 
     The net is built on `device` (the CUDA card when None; pass 'cpu'
     for the plain path) in eval mode.  init_fn(seed) re-draws every
@@ -69,7 +62,9 @@ def build_model(config: dict, device: DeviceLike = None):
         config["unet_in"] = color_channels
         net = Unet.from_config(config).to(dev).eval()
         process = GaussianDiffusion(schedule, _nhwc(net),
-                                    (size, size, color_channels))
+                                    (size, size, color_channels),
+                                    loss_type=config["loss_type"],
+                                    loss_flat=config["loss_flat"])
     elif config["model"] == "dddpm":
         unet_in = config["unet_in"]
         if unet_in < color_channels:
@@ -80,17 +75,27 @@ def build_model(config: dict, device: DeviceLike = None):
                              f"downsample factor {reduc}")
         z_size = size // reduc
         net = DDDPMNet(config).to(dev).eval()
-        process = DownsampleDiffusion(
+        cls = (DownsampleDiffusionAutoencoder if config["ae_loss"]
+               else DownsampleDiffusion)
+        process = cls(
             schedule, _nhwc(net.unet), _nhwc(net.downsample),
             _nhwc(net.upsample), x_shape=(size, size, color_channels),
             sample_shape=(z_size, z_size, unet_in),
-            force_latent=config["force_latent"])
+            loss_type=config["loss_type"], loss_flat=config["loss_flat"],
+            t_rec_max=config["t_rec_max"],
+            force_latent=config["force_latent"],
+            # the compact recon branch: AE variant only, and only with
+            # deterministic resamplers (factory.py:150-152)
+            recon_compact=(bool(config.get("recon_compact", True))
+                           and bool(config["ae_loss"])
+                           and config.get("d_dropout", 0) == 0))
     else:
         raise NotImplementedError(f"model {config['model']} not implemented")
 
     def init_fn(seed: int) -> nn.Module:
         return init_params_(net, torch.Generator().manual_seed(seed))
 
+    config["model_size"] = param_count(net)
     return net, process, init_fn, config
 
 

@@ -81,9 +81,12 @@ class ConvResBlock(nn.Module):
     """Pre-activation 1x1 -> 3x3 -> 3x3 -> 1x1 bottleneck with optional
     residual and 2x up/down scaling (nearest upsample / 2x2 mean pool).
 
-    Where `fused_shape_ok` holds and no dropout is active, the whole
-    block (residual and scaling included) runs as one call of
-    ops/convres.fused_convres_block: the kernel on the card."""
+    Where `fused_shape_ok` holds, the conv core runs as one call of
+    ops/convres.fused_convres_block (the kernels on the card, forward
+    and backward).  With no dropout active the residual and the scaling
+    run inside that call too; with dropout active the call computes the
+    core alone and dropout, residual and scaling follow outside, as the
+    JAX module dispatches (resample.py:203-252)."""
 
     def __init__(self, dim: int, in_channels: int, out_channels: int,
                  upsample: bool = False, downsample: bool = False,
@@ -121,18 +124,22 @@ class ConvResBlock(nn.Module):
                 and self.in_channels in IO_CHANNELS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dropout_on = self.training and self.drop.p > 0
-        if not dropout_on and self.fused_shape_ok(x.shape[2], x.shape[3]):
+        whole_block = not (self.training and self.drop.p > 0)
+        if self.fused_shape_ok(x.shape[2], x.shape[3]):
             dt = self.convs[0].compute_dtype
             hwio = [(c.weight.permute(2, 3, 1, 0), c.bias) for c in self.convs]
-            y = fused_convres_block(
-                x.to(dt).permute(0, 2, 3, 1).contiguous(),
+            x = x.to(dt)
+            h = fused_convres_block(
+                x.permute(0, 2, 3, 1).contiguous(),
                 *(t for pair in hwio for t in pair),
-                residual=self.residual, scale=self.scale)
-            return y.permute(0, 3, 1, 2)
-        h = x
-        for conv in self.convs:
-            h = conv(mish(h))
+                residual=self.residual and whole_block,
+                scale=self.scale if whole_block else None).permute(0, 3, 1, 2)
+            if whole_block:
+                return h
+        else:
+            h = x
+            for conv in self.convs:
+                h = conv(mish(h))
         h = self.drop(h)
         out = x + h if self.residual else h
         return scale_ref(out.permute(0, 2, 3, 1), self.scale).permute(0, 3, 1, 2)

@@ -6,10 +6,13 @@ mish -> 1x1 (cio -> cm) -> mish -> 3x3 -> mish -> 3x3 -> mish -> 1x1
 or 2x nearest upsample ('up').  NHWC activations and HWIO weights, the
 JAX package's layout.
 
-On a CUDA tensor the whole block is one hand-written kernel
-(csrc/convres_fwd.cu); on a CPU tensor the plain version
-`reference_impl` runs.  The backward kernel is not ported yet, so the
-kernel path refuses inputs that require grad.
+On a CUDA tensor the forward is one hand-written kernel
+(csrc/convres_fwd.cu, K2) and the backward another (csrc/convres_bwd.cu,
+K3); on a CPU tensor the plain versions run (`reference_impl`, and
+`backward_reference` under autograd).  As in the JAX custom VJP, the
+forward saves only x and the weights: the backward recomputes the
+intermediates, and the scaling's VJP (`unscale_grad`) runs in plain
+PyTorch before the backward kernel.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ IO_CHANNELS = (32, 64, 128)
 _SCALES = {None: 0, "up": 1, "down": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the C entry; chip_smoke.py reads it
-LAUNCHES = {"convres_fwd": 0}
+# launches of each C entry; chip_smoke.py reads these
+LAUNCHES = {"convres_fwd": 0, "convres_bwd": 0}
 
 
 def scale_ref(out: torch.Tensor, scale: Optional[str]) -> torch.Tensor:
@@ -64,6 +67,31 @@ def reference_impl(x, w1, b1, w2, b2, w3, b3, w4, b4, residual: bool = True,
     return scale_ref(out.permute(0, 2, 3, 1), scale)
 
 
+def unscale_grad(dy: torch.Tensor, scale: Optional[str]) -> torch.Tensor:
+    """VJP of scale_ref on NHWC dy: 'down' is a 2x2 broadcast x0.25, 'up'
+    a 2x2 window sum (dddpm_tpu/ops/pallas/convres.py:_unscale_grad)."""
+    b, hh, ww, c = dy.shape
+    if scale == "down":
+        return ((dy[:, :, None, :, None, :] * 0.25).expand(b, hh, 2, ww, 2, c)
+                .reshape(b, hh * 2, ww * 2, c))
+    if scale == "up":
+        return dy.reshape(b, hh // 2, 2, ww // 2, 2, c).sum(dim=(2, 4))
+    return dy
+
+
+def backward_reference(x, w1, b1, w2, b2, w3, b3, w4, b4, dy,
+                       residual: bool = True) -> tuple:
+    """Plain version of the backward (what K3 computes): the gradients of
+    reference_impl (no scaling) at x for the output gradient dy, as
+    (dx, dw1, db1, dw2, db2, dw3, db3, dw4, db4), each in its input's
+    dtype, by autograd."""
+    inputs = [t.detach().requires_grad_() for t in
+              (x, w1, b1, w2, b2, w3, b3, w4, b4)]
+    with torch.enable_grad():
+        y = reference_impl(*inputs, residual=residual)
+        return torch.autograd.grad(y, inputs, dy.to(y.dtype))
+
+
 def _lib():
     lib = _build.load("convres_fwd")
     if lib.convres_fwd.argtypes is None:
@@ -73,13 +101,26 @@ def _lib():
     return lib
 
 
-def _kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, residual, scale):
+def _lib_bwd():
+    lib = _build.load("convres_bwd")
+    if lib.convres_bwd.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.convres_bwd.argtypes = [vp] * 12 + [i] * 7 + [vp]
+        lib.convres_bwd.restype = i
+        lib.convres_bwd_partial_size.argtypes = [i]
+        lib.convres_bwd_partial_size.restype = i
+    return lib
+
+
+def _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4) -> None:
+    """Raises on what the kernels do not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC tensor")
-    bsz, h, w, c = x.shape
-    cm = MID_CHANNELS
+    c, cm = x.shape[-1], MID_CHANNELS
     if c not in IO_CHANNELS:
         raise ValueError(f"kernel takes {IO_CHANNELS} channels, got {c}")
     shapes = {"w1": (w1, (1, 1, c, cm)), "w2": (w2, (3, 3, cm, cm)),
@@ -90,6 +131,12 @@ def _kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, residual, scale):
         if tuple(t.shape) != want or t.device != x.device:
             raise ValueError(f"{name} must be {want} on {x.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
+
+
+def _kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, residual, scale):
+    """K2: the forward kernel."""
+    _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4)
+    bsz, h, w, c = x.shape
     if scale not in _SCALES:
         raise ValueError(f"scale must be None, 'up' or 'down', got {scale!r}")
     if scale == "down" and (h % 2 or w % 2):
@@ -109,28 +156,88 @@ def _kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, residual, scale):
     return y
 
 
+def _bwd_blocks(x) -> int:
+    """Blocks of K3: one per SM (each holds ~200 KB of shared memory),
+    never more than there are 8x8 tiles."""
+    bsz, h, w, _ = x.shape
+    tiles = bsz * -(-h // 8) * -(-w // 8)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return max(1, min(tiles, sms))
+
+
+def _bwd_kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, dy, residual) -> tuple:
+    """K3: dx in x's dtype and the eight weight and bias gradients in
+    float32, in the shapes of w1..b4 (b4's gradient is dy's sum)."""
+    _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4)
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
+        raise ValueError("dy must be contiguous and match x")
+    bsz, h, w, c = x.shape
+    cm = MID_CHANNELS
+    lib = _lib_bwd()
+    n = lib.convres_bwd_partial_size(c)
+    nblk = _bwd_blocks(x)
+    part = torch.empty((nblk, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    ws = [t.to(x.dtype).contiguous() for t in (w1, w2, w3, w4)]
+    bs = [t.float().contiguous() for t in (b1, b2, b3)]
+    p = _build.ptr
+    LAUNCHES["convres_bwd"] += 1
+    status = lib.convres_bwd(
+        p(x), p(dy), p(ws[0]), p(bs[0]), p(ws[1]), p(bs[1]), p(ws[2]),
+        p(bs[2]), p(ws[3]), p(dx), p(part), p(out), bsz, h, w, c,
+        int(residual), nblk, _DTYPES[x.dtype], _build.stream(x))
+    _build.check(status, "convres_bwd")
+    sizes = [c * cm, cm, 9 * cm * cm, cm, 9 * cm * cm, cm, cm * c, c]
+    grads = torch.split(out, sizes)
+    return (dx, *(g.view(t.shape) for g, t in
+                  zip(grads, (w1, b1, w2, b2, w3, b3, w4, b4))))
+
+
+class _ConvResBlockFn(torch.autograd.Function):
+    """K2 forward and K3 backward on the card, the plain versions on the
+    CPU.  Saves only x and the weights, as the JAX custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, w3, b3, w4, b4, residual, scale):
+        ctx.residual, ctx.scale = residual, scale
+        ctx.save_for_backward(x, w1, b1, w2, b2, w3, b3, w4, b4)
+        if x.device.type == "cpu":
+            return reference_impl(x, w1, b1, w2, b2, w3, b3, w4, b4, residual,
+                                  scale)
+        return _kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, residual, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        x = saved[0]
+        dy = unscale_grad(dy, ctx.scale).to(x.dtype).contiguous()
+        if x.device.type == "cpu":
+            grads = backward_reference(*saved, dy, ctx.residual)
+        else:
+            grads = _bwd_kernel(*saved, dy, ctx.residual)
+        # each gradient in its input's dtype, in the input's (view's) shape
+        grads = [g.to(t.dtype) for g, t in zip(grads, saved)]
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None, None)
+
+
 def fused_convres_block(x, w1, b1, w2, b2, w3, b3, w4, b4,
                         residual: bool = True,
                         scale: Optional[str] = None) -> torch.Tensor:
     """The whole ConvResBlock on NHWC x: w1 (1,1,cio,cm), w2, w3
     (3,3,cm,cm), w4 (1,1,cm,cio), 1-D biases.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
-    if x.device.type == "cpu":
-        return reference_impl(x, w1, b1, w2, b2, w3, b3, w4, b4, residual,
-                              scale)
-    if x.device.type != "cuda":
+    versions; CUDA tensors launch the forward kernel and, under autograd,
+    the backward kernel, or raise."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w1, b1, w2, b2, w3, b3, w4, b4)):
-        raise NotImplementedError(
-            "the ConvResBlock backward kernel is not ported yet; run the "
-            "kernel under torch.no_grad()")
-    return _kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, residual, scale)
+    return _ConvResBlockFn.apply(x, w1, b1, w2, b2, w3, b3, w4, b4, residual,
+                                 scale)
 
 
 def cost(bsz: int, h: int, w: int, c: int, itemsize: int,
          scale: Optional[str]) -> dict:
-    """Bytes the block must move (x once, y once, weights) and FLOPs it
+    """Bytes the forward must move (x once, y once, weights) and FLOPs it
     must do (the four convs; mish counted as 8 operations)."""
     cm = MID_CHANNELS
     pix = bsz * h * w
@@ -139,4 +246,23 @@ def cost(bsz: int, h: int, w: int, c: int, itemsize: int,
     return {
         "bytes": pix * c * itemsize + out_pix * c * itemsize + weights,
         "flops": pix * (2 * (2 * c * cm + 18 * cm * cm) + 8 * (c + 3 * cm)),
+    }
+
+
+def cost_bwd(bsz: int, h: int, w: int, c: int, itemsize: int) -> dict:
+    """Bytes the backward must move (x and dy read once, dx written once,
+    the weights read, the eight float32 gradients written) and FLOPs it
+    must do: the first three convs recomputed (p1..p3; the last 1x1's
+    output p4 is never needed), the data gradient of every conv (the
+    first one's included, as dx needs it) and the weight gradient of
+    every conv, each as many products as the forward's conv; mish,
+    mish' and the masks counted as 8 + 12 operations a channel."""
+    cm = MID_CHANNELS
+    pix = bsz * h * w
+    conv = 2 * (2 * c * cm + 18 * cm * cm)
+    n_w = 2 * c * cm + 18 * cm * cm + 3 * cm + c
+    return {
+        "bytes": 3 * pix * c * itemsize + (n_w - 3 * cm - c) * itemsize
+        + 3 * cm * 4 + n_w * 4,
+        "flops": pix * (3 * conv - 2 * c * cm + 20 * (c + 3 * cm)),
     }

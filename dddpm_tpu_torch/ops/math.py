@@ -11,9 +11,27 @@ import torch
 import torch.nn.functional as F
 
 
+class _Mish(torch.autograd.Function):
+    """x * tanh(softplus(x)) with the JAX package's custom JVP as its
+    backward: with t = tanh(softplus(x)) and s = sigmoid(x),
+    mish'(x) = t + x * s * (1 - t^2) (dddpm_tpu/ops/math.py:18-41).
+    F.softplus is the stable form (x itself above 20)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * torch.tanh(F.softplus(x))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        t = torch.tanh(F.softplus(x))
+        return grad * (t + x * torch.sigmoid(x) * (1.0 - t * t))
+
+
 def mish(x: torch.Tensor) -> torch.Tensor:
     """Mish activation: x * tanh(softplus(x))."""
-    return x * torch.tanh(F.softplus(x))
+    return _Mish.apply(x)
 
 
 def l1_loss(target: torch.Tensor, output: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,130 @@
+"""Train state and the training step (port of dddpm_tpu/train/state.py).
+
+A step: the gradients of `grad_accum` micro-batches, averaged; their
+global norm; the clip; Adam; the EMA.  Metrics stay device tensors until
+the trainer flushes them, so a step waits on the device only where the
+loss itself must (the recon gate's row count is read from the host-side
+t, without a sync).
+
+Deliberate differences from JAX: the clip is optax's clip_by_global_norm
+(scale by max_norm / |g| only when |g| >= max_norm), not
+torch.nn.utils.clip_grad_norm_, which divides by |g| + 1e-6.  Dropout
+masks come from torch's generator (seeded by seed_everything), not from
+JAX's keys, so the same seed drops other units; comparisons with the JAX
+package run with dropout 0 and inject JAX's t and eps.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from dddpm_tpu_torch.models.ddpm import fold_seed
+from dddpm_tpu_torch.train.ema import ema_update
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt(sum of squares) over all tensors, float32 (optax.global_norm)."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+class Optimizer:
+    """Global-norm clip (optax's rule), then torch.optim.Adam with
+    optax's defaults b1 0.9, b2 0.999, eps 1e-8 (reference
+    trainer_ddpm.py:142-143).  Adam is plain XLA in the JAX package, so
+    the library optimizer stands in for it here."""
+
+    def __init__(self, params: Sequence[nn.Parameter], lr: float,
+                 clip_norm: float = 1.0):
+        self.params = list(params)
+        self.clip_norm = clip_norm
+        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
+                                     eps=1e-8)
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """Clips the params' .grad in place, steps Adam; returns the
+        norm before the clip."""
+        grads = [p.grad for p in self.params]
+        norm = global_norm(grads)
+        scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
+                            self.clip_norm / norm)
+        torch._foreach_mul_(grads, scale)
+        self.adam.step()
+        return norm
+
+    def state_dict(self) -> dict:
+        return self.adam.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state)
+
+
+def create_optimizer(net: nn.Module, lr: float,
+                     clip_norm: float = 1.0) -> Optimizer:
+    return Optimizer(net.parameters(), lr, clip_norm)
+
+
+@dataclass
+class TrainState:
+    """All mutable training state: the net's own parameters, their EMA,
+    the optimizer (its Adam moments) and the step, 0-based."""
+
+    step: int
+    params: Dict[str, nn.Parameter]
+    ema_params: Dict[str, torch.Tensor]
+    opt: Optimizer
+    seed: int
+
+
+def create_train_state(net: nn.Module, opt: Optimizer, seed: int) -> TrainState:
+    params = dict(net.named_parameters())
+    ema = {k: p.detach().clone() for k, p in params.items()}
+    return TrainState(step=0, params=params, ema_params=ema, opt=opt,
+                      seed=seed)
+
+
+def make_train_step(process, grad_accum: int = 2, ema_decay: float = 0.995,
+                    ema_start: int = 2000, ema_every: int = 10) -> Callable:
+    """Builds train_step(state, batch, t=None, eps=None) -> metrics.
+
+    batch is (grad_accum, B, H, W, C) on the net's device.  Micro-batch i
+    of step s draws its t and eps from key fold_seed(fold_seed(seed, s),
+    i); t (grad_accum, B) and eps (grad_accum, B, *sample_shape) may be
+    given instead.  The state is updated in place."""
+    use_ema = ema_decay > 0
+
+    def train_step(state: TrainState, batch: torch.Tensor,
+                   t: Optional[torch.Tensor] = None,
+                   eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        params: List[nn.Parameter] = list(state.params.values())
+        for p in params:   # every param gets a gradient, zero if unused
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            else:
+                p.grad.zero_()
+        step_key = fold_seed(state.seed, state.step)
+        metrics = []
+        for i in range(grad_accum):
+            obj, m = process.loss_fn(
+                batch[i], fold_seed(step_key, i),
+                t=None if t is None else t[i],
+                eps=None if eps is None else eps[i])
+            obj.backward()
+            metrics.append({k: v.detach() for k, v in m.items()})
+        with torch.no_grad():
+            torch._foreach_div_([p.grad for p in params], grad_accum)
+        grad_norm = state.opt.step()
+        if use_ema:
+            ema_update(state.ema_params.values(), params, state.step,
+                       ema_decay, ema_start, ema_every)
+        state.step += 1
+        out = {k: torch.stack([m[k] for m in metrics]).mean()
+               for k in metrics[0]}
+        out["grad_norm"] = grad_norm
+        return out
+
+    return train_step

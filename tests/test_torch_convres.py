@@ -12,7 +12,11 @@ from dddpm_tpu.models import resample as jres
 from dddpm_tpu.ops.pallas.convres import fused_convres_block as jax_fused
 from dddpm_tpu_torch.convert import jax_to_state_dict
 from dddpm_tpu_torch.models import resample
-from dddpm_tpu_torch.ops.convres import fused_convres_block
+from dddpm_tpu_torch.ops.convres import (
+    backward_reference,
+    fused_convres_block,
+    reference_impl,
+)
 
 # f32 on both sides, conv sums in other orders: oneDNN picks its
 # algorithm by thread count, and with the +2 bias shift the outputs reach
@@ -92,6 +96,38 @@ def test_convresnet_matches_jax(monkeypatch, upsample):
                                np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("mode", [{"downsample": True}, {"upsample": True}])
+def test_module_with_dropout_runs_the_core_fused_and_the_rest_outside(
+        monkeypatch, mode):
+    """With dropout active the fused op computes the conv core alone
+    (residual=False, scale=None), and dropout, residual and scaling
+    follow outside, as the JAX module dispatches (resample.py:203-252)."""
+    monkeypatch.setattr(resample, "FUSED_MIN_PIXELS", 0)
+    calls = []
+
+    def spy(*args, residual, scale):
+        calls.append((residual, scale))
+        return fused_convres_block(*args, residual=residual, scale=scale)
+
+    monkeypatch.setattr(resample, "fused_convres_block", spy)
+    block = resample.ConvResBlock(32, 32, 32, residual=True, dropout=0.5,
+                                  **mode).train()
+    x = torch.randn(2, 32, 16, 16, generator=torch.Generator().manual_seed(3))
+    torch.manual_seed(0)
+    got = block(x)
+    assert calls == [(False, None)]
+    hwio = [t for c in block.convs for t in (c.weight.permute(2, 3, 1, 0), c.bias)]
+    core = reference_impl(x.permute(0, 2, 3, 1), *hwio, residual=False)
+    torch.manual_seed(0)
+    want = resample.scale_ref(
+        (x + block.drop(core.permute(0, 3, 1, 2))).permute(0, 2, 3, 1),
+        block.scale).permute(0, 3, 1, 2)
+    torch.testing.assert_close(got, want)
+    block.eval()
+    block(x)
+    assert calls[-1] == (True, block.scale)
+
+
 def test_gate_matches_jax_where_the_kernel_applies():
     cases = [((128, 128), dict(dim=32, in_channels=32, out_channels=32)),
              ((256, 256), dict(dim=32, in_channels=64, out_channels=64)),
@@ -109,8 +145,59 @@ def test_gate_matches_jax_where_the_kernel_applies():
     assert not resample.ConvResBlock(64, 128, 128).fused_shape_ok(128, 128)
 
 
-def test_block_refuses_grad_on_card_only():
-    """On the CPU the plain version gives gradients."""
+def test_block_gives_grads_on_cpu_through_the_autograd_function():
+    """On the CPU the autograd Function's plain backward gives every
+    gradient, in each input's dtype and shape, equal to autograd through
+    the plain forward (the same function, differentiated twice)."""
     args = [torch.from_numpy(a).requires_grad_() for a in _make(5, h=16, w=8)]
-    fused_convres_block(*args).square().sum().backward()
-    assert args[0].grad is not None
+    fused_convres_block(*args, scale="down").square().sum().backward()
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    reference_impl(*leaves, scale="down").square().sum().backward()
+    for a, ref in zip(args, leaves):
+        assert a.grad.dtype == a.dtype and a.grad.shape == a.shape
+        np.testing.assert_allclose(a.grad.numpy(), ref.grad.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+# the JAX backward kernel's sums run over packed tiles in another order;
+# dW sums ~500 products of magnitude up to ~5 (b1/b2 shifted by +2), so
+# 5e-4 absolute is ~1e-5 of the largest gradient entries
+GRAD_TOL = dict(rtol=1e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("scale", [None, "up", "down"])
+@pytest.mark.parametrize("residual", [True, False])
+def test_block_grads_match_jax_custom_vjp(scale, residual):
+    """dx and all eight dW/db from the port's autograd Function against
+    jax.grad through the JAX fused block's custom VJP (its backward
+    kernel in interpret mode), with b1/b2 shifted by +2 so that a halo
+    slip shows at the image border."""
+    args = _make(6, h=16, w=8, bias_shift=2.0)
+    out_shape = {None: (2, 16, 8, 16), "up": (2, 32, 16, 16),
+                 "down": (2, 8, 4, 16)}[scale]
+    dy = np.random.default_rng(7).standard_normal(out_shape).astype(np.float32)
+
+    def jloss(*a):
+        return jnp.sum(jax_fused(*a, residual, True, scale) * dy)
+
+    want = jax.grad(jloss, argnums=tuple(range(9)))(*map(jnp.asarray, args))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    out = fused_convres_block(*leaves, residual=residual, scale=scale)
+    (out * torch.from_numpy(dy)).sum().backward()
+    names = ["dx", "dw1", "db1", "dw2", "db2", "dw3", "db3", "dw4", "db4"]
+    for name, t, w in zip(names, leaves, want):
+        assert t.grad.shape == w.shape, name
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), **GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_backward_reference_is_the_unscaled_vjp():
+    """backward_reference(dy) is what the kernel K3 is held against:
+    autograd of the unscaled block at x."""
+    args = [torch.from_numpy(a) for a in _make(8, h=16, w=8)]
+    dy = torch.randn(2, 16, 8, 16, generator=torch.Generator().manual_seed(0))
+    got = backward_reference(*args, dy, residual=False)
+    leaves = [a.clone().requires_grad_() for a in args]
+    (reference_impl(*leaves, residual=False) * dy).sum().backward()
+    for g, t in zip(got, leaves):
+        torch.testing.assert_close(g, t.grad)

@@ -96,18 +96,68 @@ def test_attention_kernel_gradients_match_plain(card):
         _close(got, want, torch.float32)
 
 
+def _convres_args(card, bsz, h, w, c, dtype, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=card)
+    cm = cr.MID_CHANNELS
+    return (r(bsz, h, w, c).to(dtype),
+            r(1, 1, c, cm) / c ** 0.5, 0.1 * r(cm) + 2.0,
+            r(3, 3, cm, cm) / (9 * cm) ** 0.5, 0.1 * r(cm) + 2.0,
+            r(3, 3, cm, cm) / (9 * cm) ** 0.5, 0.1 * r(cm),
+            r(1, 1, cm, c) / cm ** 0.5, 0.1 * r(c)), gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,h,w,c", [(2, 32, 64, 64), (1, 40, 36, 32),
+                                       (1, 16, 16, 128), (3, 8, 8, 64)])
+def test_convres_backward_kernel_matches_plain(card, dtype, bsz, h, w, c):
+    """K3 (dx and the eight dW/db) against backward_reference, with b1/b2
+    shifted by +2 so that a halo slip shows; 40x36 leaves partial tiles."""
+    args, gen = _convres_args(card, bsz, h, w, c, dtype, h * w + c + 1)
+    dy = torch.randn(bsz, h, w, c, generator=gen, device=card).to(dtype)
+    for residual in (True, False):
+        got = cr._bwd_kernel(*args, dy, residual)
+        want = cr.backward_reference(*args, dy, residual)
+        for g, t in zip(got, want):
+            assert g.shape == t.shape
+            _close(g, t, dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("scale", [None, "up", "down"])
+def test_convres_autograd_on_card_matches_plain(card, scale):
+    """Under autograd a CUDA tensor launches K2 forward and K3 backward;
+    the gradients equal autograd through the plain forward (f32)."""
+    args, gen = _convres_args(card, 2, 32, 32, 64, torch.float32, 5)
+    grads = []
+    for use_kernel in (True, False):
+        leaves = [a.clone().requires_grad_() for a in args]
+        before = dict(cr.LAUNCHES)
+        if use_kernel:
+            out = cr.fused_convres_block(*leaves, residual=True, scale=scale)
+        else:
+            out = cr.reference_impl(*leaves, residual=True, scale=scale)
+        out.square().sum().backward()
+        if use_kernel:
+            assert cr.LAUNCHES["convres_fwd"] == before["convres_fwd"] + 1
+            assert cr.LAUNCHES["convres_bwd"] == before["convres_bwd"] + 1
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        _close(got, want, torch.float32)
+
+
 def test_kernel_paths_refuse_what_they_cannot_take(card):
     x = torch.zeros(1, 1024, 48, device=card)
     g = torch.ones(48, device=card)
     with pytest.raises(ValueError):
         ab.attention_ctx(x, g, g, torch.zeros(48, 256, device=card))
-    w = torch.zeros(1, 1, 64, 32, device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        cr.fused_convres_block(torch.zeros(1, 8, 8, 64, device=card), w,
-                               torch.zeros(32, device=card),
-                               torch.zeros(3, 3, 32, 32, device=card),
-                               torch.zeros(32, device=card),
-                               torch.zeros(3, 3, 32, 32, device=card),
-                               torch.zeros(32, device=card),
-                               torch.zeros(1, 1, 32, 64, device=card),
-                               torch.zeros(64, device=card))
+    # 48 in/out channels: neither ConvResBlock kernel takes them, with or
+    # without autograd
+    w = torch.zeros(1, 1, 48, 32, device=card, requires_grad=True)
+    rest = (torch.zeros(32, device=card), torch.zeros(3, 3, 32, 32, device=card),
+            torch.zeros(32, device=card), torch.zeros(3, 3, 32, 32, device=card),
+            torch.zeros(32, device=card), torch.zeros(1, 1, 32, 48, device=card),
+            torch.zeros(48, device=card))
+    for grad in (True, False):
+        with torch.set_grad_enabled(grad), pytest.raises(ValueError):
+            cr.fused_convres_block(torch.zeros(1, 8, 8, 48, device=card), w, *rest)
