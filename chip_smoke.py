@@ -25,7 +25,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    just before and read just after, checks them against the recon rows
    each micro-batch draws, checks the loss, the update and a checkpoint
    round trip, times and profiles further steps, and runs one f32 train
-   step (B = 2) on the card against the plain path on the CPU.
+   step (B = 2) on the card against the plain path on the CPU;
+6. the x2 UNet's ResnetBlock seam (K5): the seam with conv2 through the
+   fused conv (GroupNorm folded into its prologue) against the unfused
+   seam, and the kernel against its plain version, at the three seam
+   shapes with the x2 model's own ResnetBlock weights, bf16 and f32;
+   K5 at the identity prologue timed against F.conv2d; then the seams
+   run once more with the counters zeroed;
+7. the x2 3x3 convs through the Winograd kernel (K6), the same shapes
+   and weights, with and without mish, against its plain version (its
+   bf16 roundings of V and U), timed against F.conv2d; counted likewise;
+8. linear attention (K4) at the x2 UNet's five attention sites above
+   512 tokens (B = 8), q, k, v from LN(x) and the site's own qkv
+   weights, against its plain version; counted likewise;
+9. the one-pass attention block (K1c): per launch at the five sites
+   against its plain version and against the two-pass route (passes A
+   and B and the fold), then the x2 chain (generate_samples, cut to
+   CHAIN_1P_STEPS steps) with FORCE_ONE_PASS set and the counters
+   zeroed, checked against the two-pass chain from the same seed.
 
 The last three lines are a JSON object with the kernels' numbers (one
 entry per kernel and path, its launches counted on that path's own run),
@@ -39,12 +56,17 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dddpm_tpu_torch.models.ddpm import draw_t, fold_seed
 from dddpm_tpu_torch.models.factory import build_model
 from dddpm_tpu_torch.ops import _build
 from dddpm_tpu_torch.ops import attention_block as ab
+from dddpm_tpu_torch.ops import conv3x3 as c3
 from dddpm_tpu_torch.ops import convres as cr
+from dddpm_tpu_torch.ops import linear_attention as la
+from dddpm_tpu_torch.ops import winograd as wg
+from dddpm_tpu_torch.ops.math import mish
 from dddpm_tpu_torch.sample import generate_samples
 from dddpm_tpu_torch.train import checkpoint
 from dddpm_tpu_torch.train.state import (
@@ -75,17 +97,34 @@ CONVRES_DECODE = [(128, 128, "up"), (256, 256, None), (256, 256, None)]
 CONVRES_DOWN = (256, 256, "down")
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-KERNELS = ["attention_block", "convres_fwd", "convres_bwd"]
+KERNELS = ["attention_block", "convres_fwd", "convres_bwd", "conv3x3",
+           "winograd", "linear_attention"]
 REPLACES = {
     "attn_ctx": "dddpm_tpu/ops/pallas/attention_block.py:148",
     "attn_out": "dddpm_tpu/ops/pallas/attention_block.py:210",
+    "attn_1pass": "dddpm_tpu/ops/pallas/attention_block.py:227",
     "convres_fwd": "dddpm_tpu/ops/pallas/convres.py:250",
     "convres_bwd": "dddpm_tpu/ops/pallas/convres.py:409",
+    "conv3x3": "dddpm_tpu/ops/pallas/conv3x3.py:54",
+    "winograd": "dddpm_tpu/ops/pallas/winograd.py:49",
+    "lin_ctx": "dddpm_tpu/ops/pallas/linear_attention.py:51",
+    "lin_out": "dddpm_tpu/ops/pallas/linear_attention.py:86",
 }
 SOURCES = {"attn_ctx": "dddpm_tpu_torch/csrc/attention_block.cu",
            "attn_out": "dddpm_tpu_torch/csrc/attention_block.cu",
+           "attn_1pass": "dddpm_tpu_torch/csrc/attention_block.cu",
            "convres_fwd": "dddpm_tpu_torch/csrc/convres_fwd.cu",
-           "convres_bwd": "dddpm_tpu_torch/csrc/convres_bwd.cu"}
+           "convres_bwd": "dddpm_tpu_torch/csrc/convres_bwd.cu",
+           "conv3x3": "dddpm_tpu_torch/csrc/conv3x3.cu",
+           "winograd": "dddpm_tpu_torch/csrc/winograd.cu",
+           "lin_ctx": "dddpm_tpu_torch/csrc/linear_attention.cu",
+           "lin_out": "dddpm_tpu_torch/csrc/linear_attention.cu"}
+# the x2 UNet's attention modules at the ATTN_SITES, in the same order
+ATTN_SITE_MODULES = [0, 1, 2, 6, 7]
+# the x2 UNet's ResnetBlock seams (H = W, C, index of the ResnetBlock):
+# the second block of the 128^2, 64^2 and 32^2 levels (C -> C)
+SEAMS = [(128, 128, 1), (64, 256, 3), (32, 256, 4)]
+CHAIN_1P_STEPS = 5
 
 # bench.py:run_train: _sample_config(32) with n_downsamples 3, lr 2e-4:
 # dDDPM x3 at CelebA-HQ 256^2 widths, on synthetic 256^2 images
@@ -107,9 +146,20 @@ TRAIN_BLOCKS = [((256, 256, "down"), 1), ((128, 128, None), 4),
 # the downsampler's 4 at the full batch without; K3 runs the 9
 FWD_PER_MB, BWD_PER_MB, FWD_NO_ROWS = 13, 9, 4
 # what the times of a kernels-line entry are per, by (kernel, path)
+_SEAMS_AT = ", ".join(f"{hw}^2 c{c}" for hw, c, _ in SEAMS)
 PER = {("attn_ctx", "x2_sample"): f"x2 chain step at B={B}",
        ("attn_out", "x2_sample"): f"x2 chain step at B={B}",
-       ("convres_fwd", "x2_sample"): f"x2 decode at B={B}"}
+       ("convres_fwd", "x2_sample"): f"x2 decode at B={B}",
+       ("attn_1pass", "x2_sample_1pass"):
+           f"x2 chain step at B={B} with DDDPM_ATTN_ONE_PASS=1 (five sites)",
+       ("conv3x3", "x2_seam"):
+           f"x2 ResnetBlock seams at B={B}, one each at {_SEAMS_AT}",
+       ("winograd", "x2_conv3x3"):
+           f"x2 3x3 convs at B={B}, one each at {_SEAMS_AT}, no mish",
+       ("lin_ctx", "x2_attn_sites"):
+           f"x2 attention sites at B={B}, the five above 512 tokens",
+       ("lin_out", "x2_attn_sites"):
+           f"x2 attention sites at B={B}, the five above 512 tokens"}
 PER_TRAIN = (f"x3 train step, B={B_TRAIN} x accumulation 2, {B_REC} recon "
              f"rows per micro-batch")
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -147,12 +197,15 @@ def bound_ms(cost: dict, dtype) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def accumulate(results, name, path, n, ms, plain_ms, bnd, cost, err):
-    """Adds n launches' kernel, plain and bound times and cost to the
-    kernels-line entry of (name, path)."""
+def accumulate(results, name, path, n, ms, plain_ms, bnd, cost, err,
+               library_ms=None):
+    """Adds n launches' kernel, plain, bound (and library) times and cost
+    to the kernels-line entry of (name, path)."""
     acc = results.setdefault((name, path), dict(
         ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, bytes=0,
-        flops=0, launches=0))
+        flops=0, launches=0, library_ms=None))
+    if library_ms is not None:
+        acc["library_ms"] = (acc["library_ms"] or 0.0) + n * library_ms
     acc["ms"] += n * ms
     acc["plain_ms"] += n * plain_ms
     acc["bound_ms"] += n * bnd
@@ -329,14 +382,17 @@ def phase_convres_bwd(results):
         f"bound {k2['bound_ms']:.3f} ms, max abs err {k2['max_abs_err']:.3e}")
 
 
+COUNTERS = (ab.LAUNCHES, cr.LAUNCHES, c3.LAUNCHES, wg.LAUNCHES, la.LAUNCHES)
+
+
 def reset_counts():
-    for d in (ab.LAUNCHES, cr.LAUNCHES):
+    for d in COUNTERS:
         for k in d:
             d[k] = 0
 
 
 def counts() -> dict:
-    return {**ab.LAUNCHES, **cr.LAUNCHES}
+    return {k: v for d in COUNTERS for k, v in d.items()}
 
 
 def phase_main_path(results):
@@ -361,6 +417,7 @@ def phase_main_path(results):
     assert launched["attn_ctx"] == 5 * CHAIN_STEPS, launched
     assert launched["attn_out"] == 5 * CHAIN_STEPS, launched
     assert launched["convres_fwd"] == 3, launched
+    assert launched["attn_1pass"] == 0, launched
     for (name, path), r in results.items():
         if path == "x2_sample":
             r["launches"] = launched[name]
@@ -387,8 +444,12 @@ def phase_main_path(results):
 
 def _category(name: str) -> str:
     n = name.lower()
-    for key, cat in (("ctx_partial", "K1a attn_ctx"), ("ctx_reduce", "K1a attn_ctx"),
+    for key, cat in (("lin_", "K4 linear attention"),
+                     ("block_1p", "K1c attn_1pass"),
+                     ("ctx_partial", "K1a attn_ctx"), ("ctx_reduce", "K1a attn_ctx"),
                      ("out_kernel", "K1b attn_out"),
+                     ("conv3x3_kernel", "K5 conv3x3"),
+                     ("winograd_kernel", "K6 winograd"),
                      ("convres_bwd", "K3 convres_bwd"), ("convres", "K2 convres"),
                      ("group_norm", "group norm"), ("gemm", "gemm/conv"),
                      ("conv", "gemm/conv"), ("xmma", "gemm/conv"),
@@ -528,7 +589,8 @@ def phase_train(results):
     want = {"attn_ctx": 2 * TRAIN_STEPS, "attn_out": 2 * TRAIN_STEPS,
             "convres_fwd": sum(FWD_PER_MB if n else FWD_NO_ROWS for n in flat),
             "convres_bwd": sum(BWD_PER_MB if n else 0 for n in flat)}
-    assert launched == want, (launched, want)
+    assert {k: launched[k] for k in want} == want, (launched, want)
+    assert not any(v for k, v in launched.items() if k not in want), launched
     for (name, path), r in results.items():
         if path == "x3_train":
             r["launches"] = launched[name]
@@ -623,6 +685,254 @@ def phase_train_against_cpu(seed: int = 5):
     assert err <= 1e-3 * scale and max(rel.values()) <= 1e-4
 
 
+def seam_params(block, t_emb, dtype) -> dict:
+    """The seam's weights of one of the model's ResnetBlocks (HWIO convs
+    in `dtype`, f32 biases and GroupNorm params) and its time bias for
+    the time embedding t_emb, in `dtype`, as the block adds it."""
+    hwio = lambda conv: (conv.weight.detach().permute(2, 3, 1, 0)
+                         .to(dtype).contiguous())
+    f32 = lambda t: t.detach().float()
+    b0, b1 = block.block0, block.block1
+    with torch.no_grad():
+        tb = block.time_proj(mish(t_emb)).to(dtype)
+    return {"w1": hwio(b0.conv), "b1": f32(b0.conv.bias),
+            "g1": f32(b0.norm.weight), "be1": f32(b0.norm.bias),
+            "w2": hwio(b1.conv), "b2": f32(b1.conv.bias),
+            "g2": f32(b1.norm.weight), "be2": f32(b1.norm.bias), "tb": tb}
+
+
+def cudnn_conv(x, w, b):
+    """One cuDNN call for the same 3x3 SAME conv (+ bias) on NHWC x and
+    HWIO w: channels_last NCHW views, x's dtype (the library yardstick,
+    used nowhere in the port)."""
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.to(x.dtype).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    bc = b.to(x.dtype)
+    return lambda: F.conv2d(xc, wc, bc, padding=1)
+
+
+def _seam_inputs(net, dtype, gen):
+    """(x, p, hw, c) at each seam: x random NHWC activations, p the
+    weights of the x2 UNet's ResnetBlock there, one time bias per sample
+    from random timesteps through the model's own time MLP."""
+    t = torch.randint(0, X2_CONFIG["T"], (B,), generator=gen, device="cuda")
+    with torch.no_grad():
+        t_emb = net.time_mlp(t)
+    for hw, c, idx in SEAMS:
+        x = torch.randn((B, hw, hw, c), generator=gen, device="cuda").to(dtype)
+        yield x, seam_params(net.resnets[idx], t_emb, dtype), hw, c
+
+
+def phase_seam(results, net):
+    """K5 at the x2 ResnetBlock seams."""
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        log(f"x2 ResnetBlock seam (K5), B={B}, {dtype}:")
+        for x, p, hw, c in _seam_inputs(net, dtype, gen):
+            with torch.no_grad():
+                check_close(f"seam_fused vs seam_plain {hw}^2 c{c}",
+                            c3.seam_fused(x, p), c3.seam_plain(x, p), dtype)
+                c1 = c3.plain(x, p["w1"], p["b1"])
+                scale, shift = c3.gn_fold(c1, p["g1"], p["be1"])
+                kw = dict(scale=scale, shift=shift, post_bias=p["tb"])
+                w2, b2 = p["w2"], p["b2"]
+                err = check_close(f"conv3x3 gn-fold prologue {hw}^2 c{c}",
+                                  c3.conv3x3_fused(c1, w2, b2, **kw),
+                                  c3.plain(c1, w2, b2, **kw), dtype)
+                check_close(f"conv3x3 identity {hw}^2 c{c}",
+                            c3.conv3x3_fused(c1, w2, b2), c3.plain(c1, w2, b2),
+                            dtype)
+                ms = cuda_ms(lambda: c3.conv3x3_fused(c1, w2, b2, **kw), 10)
+                plain_ms = cuda_ms(lambda: c3.plain(c1, w2, b2, **kw), 10)
+                ms_id = cuda_ms(lambda: c3.conv3x3_fused(c1, w2, b2), 10)
+                lib_ms = cuda_ms(cudnn_conv(c1, w2, b2), 10)
+                seam_ms = cuda_ms(lambda: c3.seam_fused(x, p), 5)
+                seam_plain_ms = cuda_ms(lambda: c3.seam_plain(x, p), 5)
+            cost = c3.cost(B, hw, hw, c, c, x.element_size(), prologue_arrays=3)
+            bnd, by = bound_ms(cost, dtype)
+            log(f"    conv3x3 {hw}^2 c{c} {dtype}: kernel {ms * 1e3:.1f} us "
+                f"(identity prologue {ms_id * 1e3:.1f} us), plain "
+                f"{plain_ms * 1e3:.1f} us, cuDNN F.conv2d {lib_ms * 1e3:.1f} us, "
+                f"bound {bnd * 1e3:.1f} us ({by}); whole seam fused "
+                f"{seam_ms * 1e3:.1f} us, unfused {seam_plain_ms * 1e3:.1f} us")
+            if dtype == torch.bfloat16:
+                accumulate(results, "conv3x3", "x2_seam", 1, ms, plain_ms, bnd,
+                           cost, err, lib_ms)
+    # the path: the three seams, counted on their own
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    seams = list(_seam_inputs(net, torch.bfloat16, gen))
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        outs = [c3.seam_fused(x, p) for x, p, _, _ in seams]
+    torch.cuda.synchronize()
+    launched = counts()
+    assert launched["conv3x3"] == len(SEAMS), launched
+    assert all(torch.isfinite(o).all() and o.shape == x.shape
+               for o, (x, _, _, _) in zip(outs, seams))
+    results[("conv3x3", "x2_seam")]["launches"] = launched["conv3x3"]
+    log(f"  seams: {launched['conv3x3']} K5 launches, outputs finite")
+
+
+def phase_winograd(results, net):
+    """K6 at the x2 3x3 convs: the seams' shapes and conv1 weights."""
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        log(f"x2 3x3 convs through Winograd (K6), B={B}, {dtype}:")
+        for x, p, hw, c in _seam_inputs(net, dtype, gen):
+            w, b = p["w1"], p["b1"]
+            with torch.no_grad():
+                err = max(check_close(
+                    f"winograd {hw}^2 c{c} mish={m}",
+                    wg.conv3x3_winograd(x, w, b, apply_mish=m),
+                    wg.plain(x, w, b, m), dtype) for m in (True, False))
+                ms = cuda_ms(lambda: wg.conv3x3_winograd(x, w, b), 10)
+                plain_ms = cuda_ms(lambda: wg.plain(x, w, b), 5)
+                lib_ms = cuda_ms(cudnn_conv(x, w, b), 10)
+            cost = wg.cost(B, hw, hw, c, c, x.element_size())
+            bnd, by = bound_ms(cost, dtype)
+            log(f"    winograd {hw}^2 c{c} {dtype}: kernel {ms * 1e3:.1f} us, "
+                f"plain {plain_ms * 1e3:.1f} us, cuDNN F.conv2d "
+                f"{lib_ms * 1e3:.1f} us, bound {bnd * 1e3:.1f} us ({by})")
+            if dtype == torch.bfloat16:
+                accumulate(results, "winograd", "x2_conv3x3", 1, ms, plain_ms,
+                           bnd, cost, err, lib_ms)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    convs = [(x, p["w1"], p["b1"]) for x, p, _, _ in
+             _seam_inputs(net, torch.bfloat16, gen)]
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        outs = [wg.conv3x3_winograd(*a) for a in convs]
+    torch.cuda.synchronize()
+    launched = counts()
+    assert launched["winograd"] == len(SEAMS), launched
+    assert all(torch.isfinite(o).all() for o in outs)
+    results[("winograd", "x2_conv3x3")]["launches"] = launched["winograd"]
+    log(f"  3x3 convs: {launched['winograd']} K6 launches, outputs finite")
+
+
+def _site_qkv(net, dtype, gen):
+    """(q, k, v, n, c) at each attention site: x random tokens, LN with
+    the site's own norm, [q | k | v] = LN(x) @ the site's qkv weights."""
+    for (n, c), idx in zip(ATTN_SITES, ATTN_SITE_MODULES):
+        mod = net.attns[idx]
+        x = torch.randn((B, n, c), generator=gen, device="cuda").to(dtype)
+        with torch.no_grad():
+            ln = ab.layer_norm_f32(x, mod.norm.g, mod.norm.b).to(dtype)
+            w_qkv, _ = mod.attn.matrices(dtype)
+            qkv = (ln @ w_qkv).reshape(B, n, 3, ab.HIDDEN)
+        yield (*(qkv[:, :, i].contiguous() for i in range(3)), n, c)
+
+
+def phase_linear_attention(results, net):
+    """K4 at the x2 UNet's five attention sites above 512 tokens."""
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        log(f"linear attention (K4) at the x2 attention sites, B={B}, {dtype}:")
+        for q, k, v, n, c in _site_qkv(net, dtype, gen):
+            with torch.no_grad():
+                ctx = la.linear_attention_ctx(k, v)
+                ctx_ref = la.ctx_plain(k, v)
+                e_ctx = check_close(f"lin_ctx N={n} (C={c})", la.blocks_of(ctx),
+                                    ctx_ref, torch.float32)
+                out_ref = la.out_plain(q, ctx_ref)
+                e_out = check_close(f"lin_out N={n} (C={c})",
+                                    la.linear_attention_out(q, ctx), out_ref,
+                                    dtype)
+                check_close(f"linear_attention N={n} vs reference_impl",
+                            la.linear_attention(q, k, v),
+                            la.reference_impl(q, k, v), dtype)
+                timings = {
+                    "lin_ctx": (lambda: la.linear_attention_ctx(k, v),
+                                lambda: la.ctx_plain(k, v), e_ctx),
+                    "lin_out": (lambda: la.linear_attention_out(q, ctx),
+                                lambda: la.out_plain(q, ctx_ref), e_out)}
+                costs = la.cost(B, n, ab.HIDDEN, q.element_size())
+                for name, (kern, plain, err) in timings.items():
+                    ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 10)
+                    bnd, by = bound_ms(costs[name], dtype)
+                    log(f"    {name} N={n} {dtype}: kernel {ms * 1e3:.1f} us, "
+                        f"plain {plain_ms * 1e3:.1f} us, bound "
+                        f"{bnd * 1e3:.1f} us ({by})")
+                    if dtype == torch.bfloat16:
+                        accumulate(results, name, "x2_attn_sites", 1, ms,
+                                   plain_ms, bnd, costs[name], err)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    sites = list(_site_qkv(net, torch.bfloat16, gen))
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        outs = [la.linear_attention(q, k, v) for q, k, v, _, _ in sites]
+    torch.cuda.synchronize()
+    launched = counts()
+    assert launched["lin_ctx"] == launched["lin_out"] == len(ATTN_SITES), launched
+    assert all(torch.isfinite(o).all() for o in outs)
+    for name in ("lin_ctx", "lin_out"):
+        results[(name, "x2_attn_sites")]["launches"] = launched[name]
+    log(f"  attention sites: {launched['lin_ctx']} launches of each K4 kernel, "
+        f"outputs finite")
+
+
+def phase_one_pass(results, process):
+    """K1c per launch at the five sites, then the x2 chain with
+    FORCE_ONE_PASS set against the two-pass chain."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    for dtype in (torch.bfloat16, torch.float32):
+        log(f"one-pass attention block (K1c), {dtype}:")
+        for n, c in sorted(set(ATTN_SITES), reverse=True):
+            x, g, b, w_qkv, w_out, b_out = attn_inputs(n, c, dtype, gen)
+            w_q, w_k, w_v = (w_qkv.reshape(c, 3, ab.HIDDEN)[:, i].contiguous()
+                             for i in range(3))
+            w_kv = torch.cat([w_k, w_v], dim=1).contiguous()
+            one = lambda: ab.attention_1pass(x, g, b, w_kv, w_q, w_out, b_out)
+            plain = lambda: ab.one_pass_reference(x, g, b, w_qkv, w_out, b_out)
+            two = lambda: ab.attention_out(
+                x, g, b, ab.fold_w_eff(w_q, ab.attention_ctx(x, g, b, w_kv),
+                                       w_out, dtype), b_out)
+            err = check_close(f"attn_1pass N={n} C={c}", one(), plain(), dtype)
+            check_close(f"attn_1pass N={n} C={c} vs two-pass route", one(),
+                        two(), dtype)
+            ms, plain_ms, two_ms = cuda_ms(one, 20), cuda_ms(plain, 10), cuda_ms(two, 20)
+            cost = ab.cost(B, n, c, x.element_size())["attn_1pass"]
+            bnd, by = bound_ms(cost, dtype)
+            log(f"    attn_1pass B={B} N={n} C={c} {dtype}: kernel "
+                f"{ms * 1e3:.1f} us, two-pass route (A + fold + B) "
+                f"{two_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+                f"{bnd * 1e3:.1f} us ({by})")
+            if dtype == torch.bfloat16:
+                accumulate(results, "attn_1pass", "x2_sample_1pass",
+                           ATTN_SITES.count((n, c)), ms, plain_ms, bnd, cost, err)
+
+    early_stop = X2_CONFIG["T"] - CHAIN_1P_STEPS
+    run = lambda: generate_samples(process, seed=31, fid_samples=B, batch_size=B,
+                                   early_stop=early_stop, progress=False)
+    ab.FORCE_ONE_PASS = True
+    torch.cuda.synchronize()
+    reset_counts()
+    samples_1p, latents_1p, timing = run()
+    launched = counts()
+    ab.FORCE_ONE_PASS = False
+    log(f"main path, one pass: x2 chain of {CHAIN_1P_STEPS} steps + decode with "
+        f"DDDPM_ATTN_ONE_PASS; launches: {launched}")
+    assert launched["attn_1pass"] == 5 * CHAIN_1P_STEPS, launched
+    assert launched["attn_ctx"] == launched["attn_out"] == 0, launched
+    assert launched["convres_fwd"] == 3, launched
+    results[("attn_1pass", "x2_sample_1pass")]["launches"] = launched["attn_1pass"]
+    assert np.isfinite(samples_1p).all() and np.isfinite(latents_1p).all()
+    samples_2p, latents_2p, _ = run()
+    # both are fix_samples'd to [0, 255] per image; the routes compute the
+    # same function with the same roundings, the partial sums of pass A
+    # split differently: tolerance() of bf16
+    for name, a, b_ in (("latents", latents_1p, latents_2p),
+                        ("samples", samples_1p, samples_2p)):
+        check_close(f"one-pass chain vs two-pass chain, {name} (0-255)",
+                    torch.from_numpy(a), torch.from_numpy(b_), torch.bfloat16)
+    log(f"  {timing['total_s']:.3f} s for {CHAIN_1P_STEPS} steps + decode "
+        f"[{card_line()}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -633,6 +943,9 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the two-pass attention is the default path; phase_one_pass drives
+    # the one-pass route itself, whatever DDDPM_ATTN_ONE_PASS says
+    ab.FORCE_ONE_PASS = False
 
     t0 = time.time()
     _build.build_all(KERNELS)
@@ -647,6 +960,10 @@ def main() -> int:
     net, process = phase_main_path(results)
     phase_profile(process)
     phase_against_cpu(net)
+    phase_seam(results, net.unet)
+    phase_winograd(results, net.unet)
+    phase_linear_attention(results, net.unet)
+    phase_one_pass(results, process)
     del net, process
     phase_train(results)
     phase_train_against_cpu()
@@ -664,7 +981,7 @@ def main() -> int:
         "bound_by": ("bytes" if r["bytes"] / HBM_BYTES_PER_S
                      >= r["flops"] / PEAK_FLOPS[torch.bfloat16]
                      else "operations"),
-        "library_ms": None,
+        "library_ms": r["library_ms"],
     } for (name, path), r in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

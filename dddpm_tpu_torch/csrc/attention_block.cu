@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernels of dddpm_tpu/ops/pallas/attention_block.py:
 //   _ctx_kernel (pass A) and _out_kernel (pass B), reached from
-//   attention_block -> _fused_forward.
+//   attention_block -> _fused_forward (the default two-pass route), and
+//   _block_kernel_1p (K1c), reached from _fused_forward_1pass when
+//   DDDPM_ATTN_ONE_PASS=1 (the one-pass route).
 //
 // What it computes, on x (B, N, C) tokens, hidden = 4 heads x 32:
 //   pass A:  ln = LN(x)  (biased variance, eps added to the std)
@@ -10,12 +12,16 @@
 //            p  = exp(min(k, 60))             (no max subtraction)
 //            A_h = p_h^T v_h, s = sum_tokens p   per sample, per head
 //            ctx = blockdiag(A_h / s)          (B, 128, 128) f32
-//   (the W_eff = Wq . ctx . Wout fold runs in PyTorch between the passes)
+//   fold:    W_eff = Wq . ctx . Wout in f32, rounded to x's type (on the
+//            two-pass route in PyTorch between the passes)
 //   pass B:  y = x + ln @ W_eff[b] + b_out     (may write over x)
 //
 // What bounds it on an H100: at the 128^2 c128 site pass A reads 4.2 MB
 // and does ~1.2 GFLOP per sample (near the bf16 ridge), pass B moves
-// 8.4 MB for 0.54 GFLOP (bandwidth-bound).
+// 8.4 MB for 0.54 GFLOP (bandwidth-bound).  The one-pass route needs x
+// read once and y written once: at B = 8 over the x2 UNet's five sites
+// 134 MB in bf16, ~40 us at 3.35 TB/s, against ~62 us for the two
+// passes, which read x twice.
 //
 // What this design does about it: this first version is a simple,
 // exact kernel, not a fast one.  The products are FMA tiles in shared
@@ -29,11 +35,29 @@
 // writes y in the same pass; reading x and writing y per element in one
 // thread makes the in-place form safe.
 //
+// The one-pass route (block_1p_kernel, K1c) runs the same item code in
+// one cooperative launch.  The TPU kernel stashes a sample's x in VMEM
+// between its phases; a block's 227 KB of shared memory cannot hold a
+// sample (4 MB at 128^2 c128 in bf16), and blocks run in no order, so
+// here the grid holds no more blocks than fit on the card at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the wrapper raises if
+// none fit) and walks the work items of four phases in grid strides,
+// with a grid-wide barrier (cooperative_groups) between them: pass A's
+// chunks, the in-order reduce per (sample, head), the W_eff fold per
+// (sample, 16 rows) in f32, and pass B's tiles, which re-read x.  That
+// re-read is the price of having no stash: at B = 8 the largest site's x
+// (33.5 MB in bf16) fits the 50 MB L2, so it may be served from L2 if
+// nothing evicts it in between (how much is not measured: the card's
+// counters cannot be read here); in f32 (67 MB) it cannot be.
+//
 // C interface: plain C entries, loaded with ctypes.  Each launches on
 // the stream it is given, allocates nothing, does not synchronise and
 // returns cudaGetLastError().
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -43,6 +67,7 @@ constexpr int KV = 2 * HIDDEN;    // width of [Wk | Wv]
 constexpr int TN = 64;            // tokens per tile
 constexpr int KC = 32;            // weight rows staged in shared memory
 constexpr int THREADS = 256;
+constexpr int FOLD_ROWS = 16;     // W_eff rows a one-pass fold item forms
 constexpr float K_CLAMP = 60.0f;
 constexpr float LN_EPS = 1e-5f;
 
@@ -130,18 +155,17 @@ __device__ void gemm_tile(const float* A, int K, const T* W, float* Ws,
   }
 }
 
-// Pass A, part 1: grid (nchunks, B).  Chunk c covers token tiles
+// Pass A, one chunk: chunk c of sample bi covers token tiles
 // [c*tpc, (c+1)*tpc); it writes its per-head partial A (4 x 32 x 32)
-// and partial s (128) for sample b.
+// and partial s (128).  smem: (TN*C + KC*KV + TN*KV) floats.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-ctx_partial_kernel(const T* x, const float* g, const float* b, const T* wkv,
-                   float* part_a, float* part_s, int N, int C, int tpc) {
-  extern __shared__ float smem[];
+__device__ void ctx_partial_item(const T* x, const float* g, const float* b,
+                                 const T* wkv, float* part_a, float* part_s,
+                                 int N, int C, int tpc, int chunk, int bi,
+                                 int nchunks, float* smem) {
   float* lns = smem;                 // TN x C
   float* ws = lns + TN * C;          // KC x KV
   float* kv = ws + KC * KV;          // TN x KV: p (unrounded) | v (rounded)
-  const int chunk = blockIdx.x, bi = blockIdx.y, nchunks = gridDim.x;
   const int t = threadIdx.x, ty = t / 32, tx = t % 32;
   // accumulator ownership: head h, row d, columns e0 .. e0+15
   const int h = t / 64, d = (t % 64) / 2, e0 = (t % 2) * 16;
@@ -150,6 +174,7 @@ ctx_partial_kernel(const T* x, const float* g, const float* b, const T* wkv,
   for (int q = 0; q < 16; ++q) acc_a[q] = 0.f;
   float acc_s = 0.f;
 
+  __syncthreads();   // smem free: the block may have used it just before
   const int ntiles = (N + TN - 1) / TN;
   const int tile_end = min(ntiles, (chunk + 1) * tpc);
   for (int tile = chunk * tpc; tile < tile_end; ++tile) {
@@ -192,6 +217,16 @@ ctx_partial_kernel(const T* x, const float* g, const float* b, const T* wkv,
   if (t < HIDDEN) part_s[slot * HIDDEN + t] = acc_s;
 }
 
+// Pass A, part 1: grid (nchunks, B), one chunk a block.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ctx_partial_kernel(const T* x, const float* g, const float* b, const T* wkv,
+                   float* part_a, float* part_s, int N, int C, int tpc) {
+  extern __shared__ float smem[];
+  ctx_partial_item<T>(x, g, b, wkv, part_a, part_s, N, C, tpc, blockIdx.x,
+                      blockIdx.y, gridDim.x, smem);
+}
+
 // Pass A, part 2: grid (B).  Sums the chunks' partials in chunk order
 // and writes ctx = blockdiag(A / s) (s indexed by the row, the k dim).
 __global__ void __launch_bounds__(THREADS)
@@ -221,26 +256,28 @@ ctx_reduce_kernel(const float* part_a, const float* part_s, float* ctx,
   }
 }
 
-// Pass B: grid (ntiles, B).  y = x + LN(x) @ W_eff[b] + b_out.  y may be x.
+// Pass B, one token tile: y = x + LN(x) @ weff + b_out for tile `tile`
+// of sample bi (weff: that sample's C x C).  y may be x.
+// smem: (TN*C + KC*C) floats.
 template <typename T, int NC>
-__global__ void __launch_bounds__(THREADS)
-out_kernel(const T* x, const float* g, const float* b, const T* weff,
-           const float* b_out, T* y, int N) {
+__device__ void out_tile(const T* x, const float* g, const float* b,
+                         const T* weff, const float* b_out, T* y, int N,
+                         int tile, int bi, float* smem) {
   constexpr int C = 32 * NC;
-  extern __shared__ float smem[];
   float* lns = smem;            // TN x C
   float* ws = lns + TN * C;     // KC x C
-  const int n0 = blockIdx.x * TN, bi = blockIdx.y;
+  const int n0 = tile * TN;
   const int rows = min(TN, N - n0);
   const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
   const size_t base = ((size_t)bi * N + n0) * C;
+  __syncthreads();   // smem free: the block may have used it just before
   ln_tile<T>(x + base, rows, C, g, b, lns);
   float acc[8][NC];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-  gemm_tile<T, NC>(lns, C, weff + (size_t)bi * C * C, ws, acc);
+  gemm_tile<T, NC>(lns, C, weff, ws, acc);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = ty * 8 + i;
@@ -252,6 +289,111 @@ out_kernel(const T* x, const float* g, const float* b, const T* weff,
       y[at] = from_f<T>(to_f(x[at]) + acc[i][j] + b_out[col]);
     }
   }
+}
+
+// Pass B: grid (ntiles, B), one tile a block.
+template <typename T, int NC>
+__global__ void __launch_bounds__(THREADS)
+out_kernel(const T* x, const float* g, const float* b, const T* weff,
+           const float* b_out, T* y, int N) {
+  constexpr int C = 32 * NC;
+  extern __shared__ float smem[];
+  out_tile<T, NC>(x, g, b, weff + (size_t)blockIdx.y * C * C, b_out, y, N,
+                  blockIdx.x, blockIdx.y, smem);
+}
+
+// One-pass block, phase 1 item: sample bi, head h.  Sums the chunks'
+// partials in chunk order and writes that head's diagonal block of
+// ctx, A / s (s indexed by the row), into ctx4 (B, 4, 32, 32).
+__device__ void reduce_head(const float* part_a, const float* part_s,
+                            float* ctx4, int nchunks, int bi, int h,
+                            float* smem) {
+  float* s = smem;   // DH
+  __syncthreads();
+  if (threadIdx.x < DH) {
+    float acc = 0.f;
+    for (int k = 0; k < nchunks; ++k)
+      acc += part_s[((size_t)bi * nchunks + k) * HIDDEN + h * DH + threadIdx.x];
+    s[threadIdx.x] = acc;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < DH * DH; idx += THREADS) {
+    float a = 0.f;
+    for (int k = 0; k < nchunks; ++k)
+      a += part_a[(((size_t)bi * nchunks + k) * 4 + h) * DH * DH + idx];
+    ctx4[((size_t)bi * 4 + h) * DH * DH + idx] = a / s[idx / DH];
+  }
+}
+
+// One-pass block, phase 2 item: rows r0 .. r0+FOLD_ROWS of sample bi's
+// W_eff = (Wq . blockdiag(ctx)) . Wout in f32, rounded to T into weff
+// (B, C, C).  wq (C, 128), wout (128, C) of type T.
+template <typename T, int NC>
+__device__ void fold_rows(const T* wq, const T* wout, const float* ctx4,
+                          T* weff, int bi, int r0, float* smem) {
+  constexpr int C = 32 * NC;
+  float* t1 = smem;   // FOLD_ROWS x HIDDEN: Wq . ctx
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < FOLD_ROWS * HIDDEN; idx += THREADS) {
+    const int r = idx / HIDDEN, col = idx % HIDDEN, h = col / DH;
+    const T* wrow = wq + (size_t)(r0 + r) * HIDDEN + h * DH;
+    const float* cblk = ctx4 + ((size_t)bi * 4 + h) * DH * DH + col % DH;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DH; ++d) acc = fmaf(to_f(wrow[d]), cblk[d * DH], acc);
+    t1[idx] = acc;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < FOLD_ROWS * C; idx += THREADS) {
+    const int r = idx / C, f = idx % C;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < HIDDEN; ++k)
+      acc = fmaf(t1[r * HIDDEN + k], to_f(wout[(size_t)k * C + f]), acc);
+    weff[((size_t)bi * C + r0 + r) * C + f] = from_f<T>(acc);
+  }
+}
+
+// The whole block in one cooperative launch: a grid of at most as many
+// blocks as fit on the card at once, each walking the items of a phase
+// in grid strides, with a grid-wide barrier between the phases.
+//   phase 0: pass A's chunks (B x nchunks), partials to part_a, part_s
+//   phase 1: the reduce, per (sample, head), into ctx4
+//   phase 2: the W_eff fold, per (sample, FOLD_ROWS rows), into weff
+//   phase 3: pass B's token tiles (B x ntiles), y = x + LN(x) W_eff + b_out
+// y is written out of place, as JAX's one-pass kernel does not alias.
+template <typename T, int NC>
+__global__ void __launch_bounds__(THREADS)
+block_1p_kernel(const T* x, const float* g, const float* b, const T* wkv,
+                const T* wq, const T* wout, const float* b_out, float* part_a,
+                float* part_s, float* ctx4, T* weff, T* y, int B, int N,
+                int nchunks, int tpc) {
+  constexpr int C = 32 * NC;
+  extern __shared__ float smem[];
+  cg::grid_group grid = cg::this_grid();
+  for (int it = blockIdx.x; it < B * nchunks; it += gridDim.x)
+    ctx_partial_item<T>(x, g, b, wkv, part_a, part_s, N, C, tpc, it % nchunks,
+                        it / nchunks, nchunks, smem);
+  grid.sync();
+  for (int it = blockIdx.x; it < B * 4; it += gridDim.x)
+    reduce_head(part_a, part_s, ctx4, nchunks, it / 4, it % 4, smem);
+  grid.sync();
+  constexpr int FOLDS = C / FOLD_ROWS;
+  for (int it = blockIdx.x; it < B * FOLDS; it += gridDim.x)
+    fold_rows<T, NC>(wq, wout, ctx4, weff, it / FOLDS, (it % FOLDS) * FOLD_ROWS,
+                     smem);
+  grid.sync();
+  const int ntiles = (N + TN - 1) / TN;
+  for (int it = blockIdx.x; it < B * ntiles; it += gridDim.x) {
+    const int bi = it / ntiles;
+    out_tile<T, NC>(x, g, b, weff + (size_t)bi * C * C, b_out, y, N,
+                    it % ntiles, bi, smem);
+  }
+}
+
+// shared memory of the one-pass kernel: the largest phase's (pass A's)
+constexpr int smem_1p(int C) {
+  return (TN * C + KC * KV + TN * KV) * (int)sizeof(float);
 }
 
 template <typename K>
@@ -304,6 +446,78 @@ int out_launch(const void* x, const void* g, const void* b, const void* weff,
   }
 }
 
+// Blocks of block_1p_kernel<T, NC> that fit on the card at once, or a
+// negative CUDA error code; 0 if the card cannot launch cooperatively.
+template <typename T, int NC>
+int resident_1p() {
+  const int smem = smem_1p(32 * NC);
+  cudaError_t err = allow_smem(block_1p_kernel<T, NC>, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, block_1p_kernel<T, NC>, THREADS, smem)) != cudaSuccess)
+    return -(int)err;
+  return coop ? per_sm * sms : 0;
+}
+
+template <typename T, int NC>
+int launch_1p(const void* x, const void* g, const void* b, const void* wkv,
+              const void* wq, const void* wout, const void* b_out, void* part_a,
+              void* part_s, void* ctx4, void* weff, void* y, int B, int N,
+              int nchunks, int tpc, int grid, cudaStream_t stream) {
+  const int resident = resident_1p<T, NC>();
+  if (resident < 0) return -resident;
+  // every block must be resident, or the grid barrier never opens
+  if (grid < 1 || grid > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const T *xp = (const T*)x, *wkvp = (const T*)wkv, *wqp = (const T*)wq,
+          *woutp = (const T*)wout;
+  const float *gp = (const float*)g, *bp = (const float*)b,
+              *bop = (const float*)b_out;
+  float *pap = (float*)part_a, *psp = (float*)part_s, *cp = (float*)ctx4;
+  T *weffp = (T*)weff, *yp = (T*)y;
+  void* args[] = {&xp,  &gp,    &bp, &wkvp, &wqp, &woutp, &bop,     &pap,
+                  &psp, &cp, &weffp, &yp,   &B,   &N,     &nchunks, &tpc};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)block_1p_kernel<T, NC>, dim3(grid), dim3(THREADS), args,
+      smem_1p(32 * NC), stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int resident_1p_c(int C) {
+  switch (C) {
+    case 32: return resident_1p<T, 1>();
+    case 64: return resident_1p<T, 2>();
+    case 128: return resident_1p<T, 4>();
+    case 256: return resident_1p<T, 8>();
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int launch_1p_c(const void* x, const void* g, const void* b, const void* wkv,
+                const void* wq, const void* wout, const void* b_out, void* part_a,
+                void* part_s, void* ctx4, void* weff, void* y, int B, int N, int C,
+                int nchunks, int tpc, int grid, cudaStream_t stream) {
+#define DDDPM_LAUNCH_1P(NC)                                                      \
+  launch_1p<T, NC>(x, g, b, wkv, wq, wout, b_out, part_a, part_s, ctx4, weff, y, \
+                   B, N, nchunks, tpc, grid, stream)
+  switch (C) {
+    case 32: return DDDPM_LAUNCH_1P(1);
+    case 64: return DDDPM_LAUNCH_1P(2);
+    case 128: return DDDPM_LAUNCH_1P(4);
+    case 256: return DDDPM_LAUNCH_1P(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DDDPM_LAUNCH_1P
+}
+
 }  // namespace
 
 extern "C" {
@@ -330,6 +544,31 @@ int attn_out(const void* x, const void* g, const void* b, const void* weff,
     return out_launch<__nv_bfloat16>(x, g, b, weff, b_out, y, B, N, C,
                                      (cudaStream_t)stream);
   return out_launch<float>(x, g, b, weff, b_out, y, B, N, C, (cudaStream_t)stream);
+}
+
+// The number of blocks of the one-pass kernel for width C that fit on
+// the card at once (the largest grid attn_1p takes), 0 if the card
+// cannot launch cooperatively, or a negative CUDA error code.
+int attn_1p_resident(int C, int dtype) {
+  return dtype == 1 ? resident_1p_c<__nv_bfloat16>(C) : resident_1p_c<float>(C);
+}
+
+// The whole block in one cooperative launch of `grid` blocks (at most
+// attn_1p_resident's).  x, y (B, N, C) of dtype, y not x; wkv (C, 256),
+// wq (C, 128), wout (128, C) of dtype; g, b, b_out (C) f32; part_a
+// (B, nchunks, 4, 32, 32), part_s (B, nchunks, 128), ctx4 (B, 4, 32, 32)
+// f32 and weff (B, C, C) of dtype are scratch.
+int attn_1p(const void* x, const void* g, const void* b, const void* wkv,
+            const void* wq, const void* wout, const void* b_out, void* part_a,
+            void* part_s, void* ctx4, void* weff, void* y, int B, int N, int C,
+            int nchunks, int tiles_per_chunk, int grid, int dtype, void* stream) {
+  if (dtype == 1)
+    return launch_1p_c<__nv_bfloat16>(x, g, b, wkv, wq, wout, b_out, part_a,
+                                      part_s, ctx4, weff, y, B, N, C, nchunks,
+                                      tiles_per_chunk, grid, (cudaStream_t)stream);
+  return launch_1p_c<float>(x, g, b, wkv, wq, wout, b_out, part_a, part_s, ctx4,
+                            weff, y, B, N, C, nchunks, tiles_per_chunk, grid,
+                            (cudaStream_t)stream);
 }
 
 }  // extern "C"

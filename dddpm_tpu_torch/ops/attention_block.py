@@ -13,7 +13,10 @@ two hand-written kernels (csrc/attention_block.cu):
                             as the JAX package leaves it to XLA
   pass B  (attention_out):  y = x + LN(x) @ W_eff + b_out
 
-At or below PLAIN_PATH_MAX_TOKENS tokens, and for every tensor on the
+or, when FORCE_ONE_PASS is set (the JAX package's own selector,
+DDDPM_ATTN_ONE_PASS=1 at import), as one cooperative launch of the same
+work, the fold included (attention_1pass, K1c), which writes y out of
+place.  At or below PLAIN_PATH_MAX_TOKENS tokens, and for every tensor on the
 CPU, the plain version `reference_impl` runs instead.  The backward of
 the kernel path is autograd through `reference_impl`, as the JAX
 custom VJP does.
@@ -21,6 +24,7 @@ custom VJP does.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -36,10 +40,17 @@ PLAIN_PATH_MAX_TOKENS = 512
 HIDDEN = 128
 DIM_HEAD = 32
 TOKEN_TILE = 64           # TN in csrc/attention_block.cu
+FOLD_ROWS = 16            # FOLD_ROWS in csrc/attention_block.cu
+ONE_PASS_WIDTHS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# the one-pass route instead of the two passes, as the JAX package's
+# _FORCE_ONE_PASS (dddpm_tpu/ops/pallas/attention_block.py:75): read from
+# the environment at import; callers may set the module global
+FORCE_ONE_PASS = os.environ.get("DDDPM_ATTN_ONE_PASS", "") == "1"
+
 # launches of each C entry; chip_smoke.py reads these
-LAUNCHES = {"attn_ctx": 0, "attn_out": 0}
+LAUNCHES = {"attn_ctx": 0, "attn_out": 0, "attn_1pass": 0}
 
 
 def layer_norm_f32(x, g, b):
@@ -167,6 +178,49 @@ def attention_out(x, g, b, w_eff, b_out, out=None):
     return out
 
 
+def attention_1pass(x, g, b, w_kv, w_q, w_out, b_out):
+    """K1c: the whole block in one cooperative launch, out of place:
+    x + LN(x) @ (Wq . blockdiag(A / s) . Wout) + b_out, with [k | v] =
+    LN(x) @ w_kv and the fold in f32, rounded to x's dtype."""
+    _check(x, g, b, w_kv, w_q, w_out)
+    bsz, n, c = x.shape
+    if c not in ONE_PASS_WIDTHS:
+        raise ValueError(f"one-pass kernel takes C in {ONE_PASS_WIDTHS}, got {c}")
+    for name, m, shape in (("w_kv", w_kv, (c, 2 * HIDDEN)),
+                           ("w_q", w_q, (c, HIDDEN)), ("w_out", w_out, (HIDDEN, c))):
+        if tuple(m.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(m.shape)}")
+    if (b_out.shape != (c,) or b_out.dtype != torch.float32
+            or b_out.device != x.device):
+        raise ValueError("b_out must be a float32 (C,) tensor on x's device")
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        resident = lib.attn_1p_resident(c, _DTYPES[x.dtype])
+    if resident < 0:
+        _build.check(-resident, "attn_1p_resident")
+    if resident == 0:
+        raise RuntimeError("the card cannot hold a block of the one-pass kernel "
+                           "(or launch cooperatively)")
+    ntiles = -(-n // TOKEN_TILE)
+    grid = min(resident, max(bsz * ntiles, bsz * c // FOLD_ROWS))
+    want = min(ntiles, max(1, grid // bsz))
+    tpc = -(-ntiles // want)
+    nchunks = -(-ntiles // tpc)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part_a = torch.empty((bsz, nchunks, 4, DIM_HEAD, DIM_HEAD), **f32)
+    part_s = torch.empty((bsz, nchunks, HIDDEN), **f32)
+    ctx4 = torch.empty((bsz, 4, DIM_HEAD, DIM_HEAD), **f32)
+    w_eff = torch.empty((bsz, c, c), dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
+    LAUNCHES["attn_1pass"] += 1
+    p = _build.ptr
+    _build.check(lib.attn_1p(p(x), p(g), p(b), p(w_kv), p(w_q), p(w_out),
+                             p(b_out), p(part_a), p(part_s), p(ctx4), p(w_eff),
+                             p(y), bsz, n, c, nchunks, tpc, grid,
+                             _DTYPES[x.dtype], _build.stream(x)), "attn_1p")
+    return y
+
+
 def _lib():
     lib = _build.load("attention_block")
     if lib.attn_ctx.argtypes is None:
@@ -175,6 +229,10 @@ def _lib():
         lib.attn_ctx.restype = i
         lib.attn_out.argtypes = [vp] * 6 + [i] * 4 + [vp]
         lib.attn_out.restype = i
+        lib.attn_1p_resident.argtypes = [i, i]
+        lib.attn_1p_resident.restype = i
+        lib.attn_1p.argtypes = [vp] * 12 + [i] * 7 + [vp]
+        lib.attn_1p.restype = i
     return lib
 
 
@@ -184,10 +242,22 @@ def fold_w_eff(w_q, ctx, w_out, dtype):
                         w_out.float()).to(dtype).contiguous()
 
 
+def one_pass_reference(x, g, b, w_qkv, w_out, b_out):
+    """Plain version of the one-pass kernel (and of the two passes with
+    the fold between them): ctx_reference, fold_w_eff, out_reference."""
+    c = x.shape[-1]
+    w_q, w_k, w_v = (w_qkv.reshape(c, 3, HIDDEN)[:, i] for i in range(3))
+    ctx = ctx_reference(x, g, b, torch.cat([w_k, w_v], dim=1).to(x.dtype))
+    return out_reference(x, g, b, fold_w_eff(w_q, ctx, w_out, x.dtype), b_out)
+
+
 def _fused_forward(x, g, b, w_qkv, w_out, b_out, inplace: bool):
     c = x.shape[-1]
     w_q, w_k, w_v = (w_qkv.reshape(c, 3, HIDDEN)[:, i] for i in range(3))
     w_kv = torch.cat([w_k, w_v], dim=1).to(x.dtype).contiguous()
+    if FORCE_ONE_PASS:    # out of place whatever `inplace` says, as JAX's
+        return attention_1pass(x, g, b, w_kv, w_q.to(x.dtype).contiguous(),
+                               w_out.to(x.dtype).contiguous(), b_out)
     ctx = attention_ctx(x, g, b, w_kv)
     w_eff = fold_w_eff(w_q, ctx, w_out, x.dtype)
     return attention_out(x, g, b, w_eff, b_out, out=x if inplace else None)
@@ -218,10 +288,12 @@ def attention_block(x, g, b, w_qkv, w_out, b_out, dim_head: int = DIM_HEAD,
 
     g, b: (C,) LayerNorm params; w_qkv: (C, 3*hidden); w_out: (hidden, C);
     b_out: (C,) f32.  On a CPU tensor the plain version runs.  On a CUDA
-    tensor with N > PLAIN_PATH_MAX_TOKENS the kernels run; any input
-    they do not take raises.  inplace=True lets pass B write y over x;
-    it is allowed only when no gradient is recorded (torch.no_grad()),
-    since autograd would need the x that it overwrites."""
+    tensor with N > PLAIN_PATH_MAX_TOKENS the kernels run (the one-pass
+    kernel when FORCE_ONE_PASS is set); any input they do not take
+    raises.  inplace=True lets pass B write y over x (the one-pass
+    kernel always writes a new tensor); it is allowed only when no
+    gradient is recorded (torch.no_grad()), since autograd would need
+    the x that it overwrites."""
     if x.device.type == "cpu" or x.shape[1] <= PLAIN_PATH_MAX_TOKENS:
         return reference_impl(x, g, b, w_qkv, w_out, b_out, dim_head)
     if w_out.shape[0] != HIDDEN or dim_head != DIM_HEAD:
@@ -238,10 +310,19 @@ def attention_block(x, g, b, w_qkv, w_out, b_out, dim_head: int = DIM_HEAD,
 
 
 def cost(bsz: int, n: int, c: int, itemsize: int) -> dict:
-    """Bytes each pass must move and FLOPs it must do (for bounds):
+    """Bytes each route must move and FLOPs it must do (for bounds):
     pass A reads x and w_kv and writes ctx; pass B reads x and W_eff and
-    writes y.  Only the block diagonal of A is needed."""
+    writes y; the one-pass kernel reads x and the three weights once and
+    writes y, and does pass A's, the fold's and pass B's products.  Only
+    the block diagonal of A is needed."""
     return {
+        "attn_1pass": {
+            "bytes": 2 * bsz * n * c * itemsize + 4 * c * HIDDEN * itemsize
+            + 3 * c * 4,
+            "flops": bsz * n * (2 * c * 2 * HIDDEN + 2 * HIDDEN * DIM_HEAD
+                                + 2 * c * c + 18 * c)
+            + bsz * (2 * c * HIDDEN * DIM_HEAD + 2 * c * HIDDEN * c),
+        },
         "attn_ctx": {
             "bytes": bsz * n * c * itemsize + c * 2 * HIDDEN * itemsize
             + bsz * HIDDEN * HIDDEN * 4,

@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from dddpm_tpu_torch.ops import attention_block as ab
+from dddpm_tpu_torch.ops import conv3x3 as c3
 from dddpm_tpu_torch.ops import convres as cr
+from dddpm_tpu_torch.ops import linear_attention as la
+from dddpm_tpu_torch.ops import winograd as wg
 
 pytestmark = pytest.mark.cuda
 
@@ -161,3 +164,158 @@ def test_kernel_paths_refuse_what_they_cannot_take(card):
     for grad in (True, False):
         with torch.set_grad_enabled(grad), pytest.raises(ValueError):
             cr.fused_convres_block(torch.zeros(1, 8, 8, 48, device=card), w, *rest)
+    z = lambda *s, dt=torch.float32: torch.zeros(*s, device=card, dtype=dt)
+    # K5: a wrong dtype, an unsupported width (Cin 48), a lone post_bias
+    with pytest.raises(TypeError):
+        c3.conv3x3_fused(z(1, 8, 8, 64, dt=torch.float16), z(3, 3, 64, 64), z(64))
+    with pytest.raises(ValueError):
+        c3.conv3x3_fused(z(1, 8, 8, 48), z(3, 3, 48, 64), z(64))
+    with pytest.raises(ValueError):
+        c3.conv3x3_fused(z(1, 8, 8, 64), z(3, 3, 64, 64), z(64), post_bias=z(1, 64))
+    # K6: a wrong dtype, odd H or W, an unsupported width (Cin 24)
+    with pytest.raises(TypeError):
+        wg.conv3x3_winograd(z(1, 8, 8, 32, dt=torch.float16), z(3, 3, 32, 32), z(32))
+    for hw in ((7, 8), (8, 9)):
+        with pytest.raises(ValueError):
+            wg.conv3x3_winograd(z(1, *hw, 32), z(3, 3, 32, 32), z(32))
+    with pytest.raises(ValueError):
+        wg.conv3x3_winograd(z(1, 8, 8, 24), z(3, 3, 24, 32), z(32))
+    # K4: a wrong dtype, an unsupported width (96), another head size
+    with pytest.raises(TypeError):
+        la.linear_attention(*(z(1, 64, 64, dt=torch.float16),) * 3)
+    with pytest.raises(ValueError):
+        la.linear_attention(*(z(1, 64, 96),) * 3)
+    with pytest.raises(ValueError):
+        la.linear_attention(*(z(1, 64, 64),) * 3, dim_head=16)
+    # K1c: a wrong dtype, an unsupported width (96)
+    with pytest.raises(TypeError):
+        ab.attention_1pass(z(1, 1024, 64, dt=torch.float16), z(64), z(64),
+                           z(64, 256), z(64, 128), z(128, 64), z(64))
+    with pytest.raises(ValueError):
+        ab.attention_1pass(z(1, 1024, 96), z(96), z(96), z(96, 256), z(96, 128),
+                           z(128, 96), z(96))
+
+
+def _rand(card, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return lambda *s: torch.randn(*s, generator=gen, device=card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["identity", "mish", "gn_fold", "gn_fold_post_bias"])
+@pytest.mark.parametrize("bsz,h,w,cin,cout", [(2, 16, 16, 128, 128),
+                                              (1, 13, 20, 128, 256),
+                                              (2, 32, 40, 256, 128)])
+def test_conv3x3_kernel_matches_plain(card, dtype, mode, bsz, h, w, cin, cout):
+    """K5 in each prologue mode; 13 x 20 leaves partial 8 x 16 bands;
+    shift != 0, so a halo padded with prologue(0) would show."""
+    r = _rand(card, h * w + cin + cout)
+    x = r(bsz, h, w, cin).to(dtype)
+    wt, b = (r(3, 3, cin, cout) / (9 * cin) ** 0.5).to(dtype), 0.1 * r(cout)
+    args = {}
+    if mode == "mish":
+        args = {"apply_mish": True}
+    elif mode.startswith("gn_fold"):
+        args = {"scale": 1.0 + 0.1 * r(bsz, cin), "shift": 0.5 + 0.2 * r(bsz, cin)}
+        if mode == "gn_fold_post_bias":
+            args["post_bias"] = (0.2 * r(bsz, cin)).to(dtype)
+    before = c3.LAUNCHES["conv3x3"]
+    got = c3.conv3x3_fused(x, wt, b, **args)
+    assert c3.LAUNCHES["conv3x3"] == before + 1
+    _close(got, c3.plain(x, wt, b, **args), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("apply_mish", [False, True])
+@pytest.mark.parametrize("bsz,h,w,cin,cout", [(2, 16, 16, 128, 128),
+                                              (1, 14, 22, 128, 256),
+                                              (1, 32, 32, 256, 64)])
+def test_winograd_kernel_matches_plain(card, dtype, apply_mish, bsz, h, w, cin,
+                                       cout):
+    """K6 against the plain version with its bf16 roundings of V and U;
+    14 x 22 leaves partial 8 x 16 bands."""
+    r = _rand(card, h * w + cin + cout + 1)
+    x = r(bsz, h, w, cin).to(dtype)
+    wt, b = r(3, 3, cin, cout) / (9 * cin) ** 0.5, 0.1 * r(cout)
+    before = wg.LAUNCHES["winograd"]
+    got = wg.conv3x3_winograd(x, wt, b, apply_mish=apply_mish)
+    assert wg.LAUNCHES["winograd"] == before + 1
+    _close(got, wg.plain(x, wt, b, apply_mish), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,n,hd", [(2, 1000, 32), (3, 4096, 128),
+                                      (1, 777, 64), (2, 100, 128)])
+def test_linear_attention_kernel_matches_plain(card, dtype, bsz, n, hd):
+    """K4; N not a multiple of the 64-token tile in three of the four."""
+    r = _rand(card, n + hd)
+    q, k, v = (r(bsz, n, hd).to(dtype) for _ in range(3))
+    before = dict(la.LAUNCHES)
+    got = la.linear_attention(q, k, v)
+    assert la.LAUNCHES == {n: c + 1 for n, c in before.items()}
+    _close(got, la.plain(q, k, v), dtype)
+    ctx = la.linear_attention_ctx(k, v)
+    # f32 from the same inputs in either dtype: sums in another order
+    _close(la.blocks_of(ctx), la.ctx_plain(k, v), torch.float32)
+    if hd > 32:
+        assert float(ctx[:, :32, 32:].abs().max()) == 0.0   # block diagonal
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_attention_merges_a_skewed_chunk(card, dtype):
+    """One token chunk holds keys ~40 above the rest: the merge must
+    rescale both s and A of every other chunk by exp(m_i - m) (an
+    unrescaled merge is off by ~exp(40))."""
+    r = _rand(card, 11)
+    q, k, v = (r(2, 16384, 128) for _ in range(3))
+    k[:, 9000:9100] += 40.0
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    got = la.linear_attention(q, k, v)
+    assert torch.isfinite(got).all()
+    _close(got, la.plain(q, k, v), dtype)
+    _close(got, la.reference_impl(q, k, v), dtype)
+
+
+def test_linear_attention_gradients_on_card(card):
+    """The kernel forward's backward is autograd through reference_impl."""
+    r = _rand(card, 12)
+    args = [r(2, 1024, 128) for _ in range(3)]
+    grads = []
+    for fn in (la.linear_attention, la.reference_impl):
+        leaves = [a.clone().requires_grad_() for a in args]
+        fn(*leaves).square().sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,n,c", [(2, 1000, 32), (3, 4096, 128),
+                                     (1, 1024, 256), (2, 777, 64),
+                                     (8, 16384, 128)])
+def test_attention_one_pass_matches_plain(card, dtype, bsz, n, c, monkeypatch):
+    """K1c against its plain version and against the two-pass route, and
+    attention_block under FORCE_ONE_PASS takes it (and not the passes)."""
+    r = _rand(card, n + c + 3)
+    x = r(bsz, n, c).to(dtype)
+    g, b, b_out = 1.0 + 0.1 * r(c), 0.1 * r(c), 0.1 * r(c)
+    w_qkv = (r(c, 384) / c ** 0.5).to(dtype)
+    w_out = (r(128, c) / 128 ** 0.5).to(dtype)
+    w_q, w_k, w_v = (w_qkv.reshape(c, 3, 128)[:, i].contiguous() for i in range(3))
+    w_kv = torch.cat([w_k, w_v], dim=1).contiguous()
+    got = ab.attention_1pass(x, g, b, w_kv, w_q, w_out, b_out)
+    want = ab.one_pass_reference(x, g, b, w_qkv, w_out, b_out)
+    _close(got, want, dtype)
+    with torch.no_grad():
+        two_pass = ab.attention_block(x, g, b, w_qkv, w_out, b_out)
+        monkeypatch.setattr(ab, "FORCE_ONE_PASS", True)
+        before = dict(ab.LAUNCHES)
+        block = ab.attention_block(x.clone(), g, b, w_qkv, w_out, b_out,
+                                   inplace=True)
+    assert ab.LAUNCHES["attn_1pass"] == before["attn_1pass"] + 1
+    assert ab.LAUNCHES["attn_ctx"] == before["attn_ctx"]
+    _close(block, two_pass, dtype)
+    torch.cuda.synchronize()
