@@ -42,7 +42,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    against its plain version and against the two-pass route (passes A
    and B and the fold), then the x2 chain (generate_samples, cut to
    CHAIN_1P_STEPS steps) with FORCE_ONE_PASS set and the counters
-   zeroed, checked against the two-pass chain from the same seed.
+   zeroed, checked against the two-pass chain from the same seed;
+10. the probes P1-P4 (dddpm_tpu_torch/probes/), with the counters zeroed
+   just before and read just after: each probe's main() at the TPU
+   probe's default size holds every variant of its kernels against its
+   plain version on the card, then times it.
 
 The last three lines are a JSON object with the kernels' numbers (one
 entry per kernel and path, its launches counted on that path's own run),
@@ -50,7 +54,6 @@ the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -67,6 +70,17 @@ from dddpm_tpu_torch.ops import convres as cr
 from dddpm_tpu_torch.ops import linear_attention as la
 from dddpm_tpu_torch.ops import winograd as wg
 from dddpm_tpu_torch.ops.math import mish
+from dddpm_tpu_torch.probes import attention_ceiling as probe_p1
+from dddpm_tpu_torch.probes import attention_writeback as probe_p2
+from dddpm_tpu_torch.probes import cmajor_conv as probe_p4
+from dddpm_tpu_torch.probes import convres_variants as probe_p3
+from dddpm_tpu_torch.probes._util import (
+    HBM_BYTES_PER_S,
+    PEAK_FLOPS,
+    bound_ms,
+    card_line,
+    cuda_ms,
+)
 from dddpm_tpu_torch.sample import generate_samples
 from dddpm_tpu_torch.train import checkpoint
 from dddpm_tpu_torch.train.state import (
@@ -95,10 +109,9 @@ ATTN_SITES = [(16384, 128), (4096, 256), (1024, 256), (1024, 256), (4096, 128)]
 # the three decoder ConvResBlocks (H, W, scale), plus the downsampler's
 CONVRES_DECODE = [(128, 128, "up"), (256, 256, None), (256, 256, None)]
 CONVRES_DOWN = (256, 256, "down")
-HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 KERNELS = ["attention_block", "convres_fwd", "convres_bwd", "conv3x3",
-           "winograd", "linear_attention"]
+           "winograd", "linear_attention", "probe_attention", "probe_copy",
+           "probe_convres", "probe_cmajor_conv"]
 REPLACES = {
     "attn_ctx": "dddpm_tpu/ops/pallas/attention_block.py:148",
     "attn_out": "dddpm_tpu/ops/pallas/attention_block.py:210",
@@ -109,6 +122,12 @@ REPLACES = {
     "winograd": "dddpm_tpu/ops/pallas/winograd.py:49",
     "lin_ctx": "dddpm_tpu/ops/pallas/linear_attention.py:51",
     "lin_out": "dddpm_tpu/ops/pallas/linear_attention.py:86",
+    "probe_attn_ctx": "scripts/probe_attention_ceiling.py:52",
+    "probe_attn_out": "scripts/probe_attention_ceiling.py:131",
+    "probe_copy": "scripts/probe_attention_writeback.py:38",
+    "probe_copy_async": "scripts/probe_attention_writeback.py:72",
+    "probe_convres": "scripts/probe_convres_variants.py:94",
+    "probe_cmajor_conv": "scripts/probe_cmajor_conv.py:29",
 }
 SOURCES = {"attn_ctx": "dddpm_tpu_torch/csrc/attention_block.cu",
            "attn_out": "dddpm_tpu_torch/csrc/attention_block.cu",
@@ -118,7 +137,13 @@ SOURCES = {"attn_ctx": "dddpm_tpu_torch/csrc/attention_block.cu",
            "conv3x3": "dddpm_tpu_torch/csrc/conv3x3.cu",
            "winograd": "dddpm_tpu_torch/csrc/winograd.cu",
            "lin_ctx": "dddpm_tpu_torch/csrc/linear_attention.cu",
-           "lin_out": "dddpm_tpu_torch/csrc/linear_attention.cu"}
+           "lin_out": "dddpm_tpu_torch/csrc/linear_attention.cu",
+           "probe_attn_ctx": "dddpm_tpu_torch/csrc/probe_attention.cu",
+           "probe_attn_out": "dddpm_tpu_torch/csrc/probe_attention.cu",
+           "probe_copy": "dddpm_tpu_torch/csrc/probe_copy.cu",
+           "probe_copy_async": "dddpm_tpu_torch/csrc/probe_copy.cu",
+           "probe_convres": "dddpm_tpu_torch/csrc/probe_convres.cu",
+           "probe_cmajor_conv": "dddpm_tpu_torch/csrc/probe_cmajor_conv.cu"}
 # the x2 UNet's attention modules at the ATTN_SITES, in the same order
 ATTN_SITE_MODULES = [0, 1, 2, 6, 7]
 # the x2 UNet's ResnetBlock seams (H = W, C, index of the ResnetBlock):
@@ -145,8 +170,12 @@ TRAIN_BLOCKS = [((256, 256, "down"), 1), ((128, 128, None), 4),
 # per micro-batch: K2 runs these 9 at the recon rows under autograd and
 # the downsampler's 4 at the full batch without; K3 runs the 9
 FWD_PER_MB, BWD_PER_MB, FWD_NO_ROWS = 13, 9, 4
-# what the times of a kernels-line entry are per, by (kernel, path)
+# what the times of a kernels-line entry are per, by (kernel, path);
+# every entry has one (a missing one raises)
 _SEAMS_AT = ", ".join(f"{hw}^2 c{c}" for hw, c, _ in SEAMS)
+_PER_TRAIN = (f"x3 train step, B={B_TRAIN} x accumulation 2, {B_REC} recon "
+              f"rows per micro-batch")
+_PER_PROBE = "one launch at the TPU probe's default size, "
 PER = {("attn_ctx", "x2_sample"): f"x2 chain step at B={B}",
        ("attn_out", "x2_sample"): f"x2 chain step at B={B}",
        ("convres_fwd", "x2_sample"): f"x2 decode at B={B}",
@@ -159,42 +188,27 @@ PER = {("attn_ctx", "x2_sample"): f"x2 chain step at B={B}",
        ("lin_ctx", "x2_attn_sites"):
            f"x2 attention sites at B={B}, the five above 512 tokens",
        ("lin_out", "x2_attn_sites"):
-           f"x2 attention sites at B={B}, the five above 512 tokens"}
-PER_TRAIN = (f"x3 train step, B={B_TRAIN} x accumulation 2, {B_REC} recon "
-             f"rows per micro-batch")
+           f"x2 attention sites at B={B}, the five above 512 tokens",
+       **{(name, "x3_train"): _PER_TRAIN
+          for name in ("attn_ctx", "attn_out", "convres_fwd", "convres_bwd")},
+       ("probe_attn_ctx", "probes"):
+           _PER_PROBE + "B=96, 128^2 tokens, C=128, bf16: pass A full, G=1",
+       ("probe_attn_out", "probes"):
+           _PER_PROBE + "B=96, 128^2 tokens, C=128, bf16: pass B full, G=1",
+       ("probe_copy", "probes"):
+           _PER_PROBE + "B=96, 128^2 tokens, C=128, bf16: base-8192",
+       ("probe_copy_async", "probes"):
+           _PER_PROBE + "B=96, 128^2 tokens, C=128, bf16: manual-8192",
+       ("probe_convres", "probes"):
+           _PER_PROBE + "B=32, 256^2, cio 64, cm 32, bf16: base",
+       ("probe_cmajor_conv", "probes"):
+           _PER_PROBE + "B=32, C=32, 256^2, bf16"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORKDIR = os.path.join(ROOT, "results", "chip_smoke")   # git-ignored
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound_ms(cost: dict, dtype) -> tuple:
-    t_bytes = cost["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = cost["flops"] / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def accumulate(results, name, path, n, ms, plain_ms, bnd, cost, err,
@@ -382,7 +396,10 @@ def phase_convres_bwd(results):
         f"bound {k2['bound_ms']:.3f} ms, max abs err {k2['max_abs_err']:.3e}")
 
 
-COUNTERS = (ab.LAUNCHES, cr.LAUNCHES, c3.LAUNCHES, wg.LAUNCHES, la.LAUNCHES)
+COUNTERS = (ab.LAUNCHES, cr.LAUNCHES, c3.LAUNCHES, wg.LAUNCHES, la.LAUNCHES,
+            probe_p1.LAUNCHES, probe_p2.LAUNCHES, probe_p3.LAUNCHES,
+            probe_p4.LAUNCHES)
+PROBES = (probe_p1, probe_p2, probe_p3, probe_p4)
 
 
 def reset_counts():
@@ -933,6 +950,36 @@ def phase_one_pass(results, process):
         f"[{card_line()}]")
 
 
+def phase_probes(results):
+    """The path of the probes: each probe's main() at its default size,
+    with the counters zeroed just before and read just after.  Each
+    main() checks every variant against its plain version on the card
+    before timing it, and raises on a mismatch."""
+    heads = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    for probe in PROBES:
+        log(f"--- {probe.__name__} ---")
+        heads.update(probe.main([]))
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launched = counts()
+    names = [k for p in PROBES for k in p.LAUNCHES]
+    # the shipped K1 and K2 launch too: P1 and P3 time them beside the
+    # variants
+    log(f"probes: {time.time() - t0:.1f} s; launches: {launched}")
+    for name in names:
+        assert launched[name] > 0, (name, launched)
+        h = heads[name]
+        bnd, _ = bound_ms(h["cost"], torch.bfloat16)
+        results[(name, "probes")] = dict(
+            ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=bnd,
+            max_abs_err=h["max_abs_err"], bytes=h["cost"]["bytes"],
+            flops=h["cost"]["flops"], launches=launched[name],
+            library_ms=h["library_ms"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -967,13 +1014,14 @@ def main() -> int:
     del net, process
     phase_train(results)
     phase_train_against_cpu()
+    phase_probes(results)
     log(f"chip_smoke: {time.time() - t0:.1f} s after the build started")
 
     # one entry per kernel and path: launches from that path's own zeroed
     # run, times and bound at that path's shapes, per what "per" says
     assert all(r["launches"] > 0 for r in results.values()), results
     kernels = [{
-        "name": name, "path": path, "per": PER.get((name, path), PER_TRAIN),
+        "name": name, "path": path, "per": PER[(name, path)],
         "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": r["launches"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

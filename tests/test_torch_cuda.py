@@ -15,6 +15,11 @@ from dddpm_tpu_torch.ops import conv3x3 as c3
 from dddpm_tpu_torch.ops import convres as cr
 from dddpm_tpu_torch.ops import linear_attention as la
 from dddpm_tpu_torch.ops import winograd as wg
+from dddpm_tpu_torch.probes import _util as pu
+from dddpm_tpu_torch.probes import attention_ceiling as p1
+from dddpm_tpu_torch.probes import attention_writeback as p2
+from dddpm_tpu_torch.probes import cmajor_conv as p4
+from dddpm_tpu_torch.probes import convres_variants as p3
 
 pytestmark = pytest.mark.cuda
 
@@ -44,7 +49,8 @@ def test_attention_kernels_match_plain(card, dtype, bsz, n, c):
     gen = torch.Generator(device=card).manual_seed(n + c)
     r = lambda *s: torch.randn(*s, generator=gen, device=card)
     x = r(bsz, n, c).to(dtype)
-    g, b, b_out = 1.0 + 0.1 * r(c), 0.1 * r(c), 0.1 * r(c)
+    # g, b far from 1, 0: LN moves both passes' outputs
+    g, b, b_out = 1.0 + 0.5 * r(c), 0.5 * r(c), 0.1 * r(c)
     w_qkv = (r(c, 384) / c ** 0.5).to(dtype)
     w_out = (r(128, c) / 128 ** 0.5).to(dtype)
     w_q, w_k, w_v = (w_qkv.reshape(c, 3, 128)[:, i] for i in range(3))
@@ -301,7 +307,8 @@ def test_attention_one_pass_matches_plain(card, dtype, bsz, n, c, monkeypatch):
     attention_block under FORCE_ONE_PASS takes it (and not the passes)."""
     r = _rand(card, n + c + 3)
     x = r(bsz, n, c).to(dtype)
-    g, b, b_out = 1.0 + 0.1 * r(c), 0.1 * r(c), 0.1 * r(c)
+    # g, b far from 1, 0: LN moves both passes' outputs
+    g, b, b_out = 1.0 + 0.5 * r(c), 0.5 * r(c), 0.1 * r(c)
     w_qkv = (r(c, 384) / c ** 0.5).to(dtype)
     w_out = (r(128, c) / 128 ** 0.5).to(dtype)
     w_q, w_k, w_v = (w_qkv.reshape(c, 3, 128)[:, i].contiguous() for i in range(3))
@@ -319,3 +326,146 @@ def test_attention_one_pass_matches_plain(card, dtype, bsz, n, c, monkeypatch):
     assert ab.LAUNCHES["attn_ctx"] == before["attn_ctx"]
     _close(block, two_pass, dtype)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------- probes P1-P4
+
+
+def _err_ok(name, got, want, tol_frac):
+    """probes._util.check with tol_frac of the larger of 1 and max |want|
+    (0: bit for bit)."""
+    torch.cuda.synchronize()
+    pu.check(name, got, want, pu.scaled_tol(want, tol_frac) if tol_frac else 0.0)
+
+
+def _p1_inputs(card, bsz, n, c):
+    r = _rand(card, n + c + 40)
+    x = r(bsz, n, c).to(torch.bfloat16)
+    # g, b far from 1, 0: LN moves both passes' outputs
+    g, b, b_out = 1.0 + 0.5 * r(c), 0.5 * r(c), 0.1 * r(c)
+    w_kv = (r(c, 256) / c ** 0.5).to(torch.bfloat16)
+    w_eff = (r(bsz, c, c) / c ** 0.5).to(torch.bfloat16)
+    return x, g, b, b_out, w_kv, w_eff
+
+
+# (N, C, tn_target): tiles of 1000 tokens end in a ragged 64-token
+# sub-tile, and at G = 4, 8 they shrink to 8 tokens; at C = 256, 4096
+# tokens give 1, 4 and 8 tiles a sample
+P1_CASES = [(1000, 128, 1000), (4096, 256, None)]
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("variant", ["full", "noexp", "noln", "payload", "dma"])
+@pytest.mark.parametrize("n,c,tn_target", P1_CASES)
+def test_probe_attention_ctx_matches_plain(card, variant, group, n, c, tn_target):
+    x, g, b, _, w_kv, _ = _p1_inputs(card, 8, n, c)
+    before = p1.LAUNCHES["probe_attn_ctx"]
+    got = p1.pass_a(x, g, b, w_kv, variant, group, tn_target)
+    assert p1.LAUNCHES["probe_attn_ctx"] == before + 1
+    want = p1.ctx_plain(x, g, b, w_kv, variant)
+    torch.cuda.synchronize()
+    pu.check(f"pass A {variant}", got, want,
+             p1.ctx_tol(want, variant))
+
+
+@pytest.mark.parametrize("n,c,tn_target", P1_CASES)
+def test_probe_attention_ctx_check_fails_a_wrong_kernel(card, n, c, tn_target):
+    """The kernel's pass A without LN, and its pass A over the first half
+    of the tokens alone (a reduce that dropped one of two tiles), both
+    fail the full variant's check."""
+    x, g, b, _, w_kv, _ = _p1_inputs(card, 8, n, c)
+    want = p1.ctx_plain(x, g, b, w_kv)
+    half = x[:, : n // 2].contiguous()
+    for wrong in (p1.pass_a(x, g, b, w_kv, "noln", 1, tn_target),
+                  p1.pass_a(half, g, b, w_kv, "full", 1, n // 2)):
+        torch.cuda.synchronize()
+        with pytest.raises(AssertionError, match="above tol"):
+            pu.check("wrong pass A", wrong, want, p1.ctx_tol(want))
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("variant", ["full", "noln", "dma"])
+@pytest.mark.parametrize("n,c,tn_target", P1_CASES)
+def test_probe_attention_out_matches_plain(card, variant, group, n, c, tn_target):
+    x, g, b, b_out, _, w_eff = _p1_inputs(card, 8, n, c)
+    got = p1.pass_b(x, g, b, w_eff, b_out, variant, group, tn_target)
+    _err_ok(f"pass B {variant}", got, p1.out_plain(x, g, b, w_eff, b_out, variant),
+            0.0 if variant == "dma" else p1.TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", [v[0] for v in p2.VARIANTS])
+def test_probe_copies_are_exact(card, variant, dtype):
+    x = _rand(card, 50)(2, 16384, 128).to(dtype)
+    keep = x.clone()
+    got = p2.copy(x, variant)
+    torch.cuda.synchronize()
+    assert torch.equal(got, keep) and torch.equal(x, keep)
+    assert (got.data_ptr() == x.data_ptr()) == variant.startswith("alias")
+
+
+@pytest.mark.parametrize("tn,c", [(100, 40), (1000, 40), (9, 16)])
+def test_probe_copy_ragged_tiles(card, tn, c):
+    """Tiles of 8000 and 80000 bytes (less than a stage, two stages and
+    a part) and 288 bytes (not a multiple of the copy kernel's 4 x 256
+    words)."""
+    x = _rand(card, 51)(3, 9 * tn, c).to(torch.bfloat16)
+    for y in (p2.copy_async_kernel(x, tn), p2.copy_kernel(x, tn),
+              p2.copy_kernel(x, tn, flat=True)):
+        torch.cuda.synchronize()
+        assert torch.equal(y, x)
+
+
+def _p3_inputs(card, bsz, h, w, seed):
+    r = _rand(card, seed)
+    cm = 32
+    # biases +1: unmasked halo rows hold mish(b1 ...), far from zero
+    return (r(bsz, h, w, 64).to(torch.bfloat16),
+            r(1, 1, 64, cm) / 8.0, 0.1 * r(cm) + 1.0,
+            r(3, 3, cm, cm) / (9 * cm) ** 0.5, 0.1 * r(cm) + 1.0,
+            r(3, 3, cm, cm) / (9 * cm) ** 0.5, 0.1 * r(cm),
+            r(1, 1, cm, 64) / cm ** 0.5, 0.1 * r(64))
+
+
+@pytest.mark.parametrize("variant", list(p3.VARIANTS))
+@pytest.mark.parametrize("bsz,h,w", [(2, 40, 36), (1, 64, 64)])
+def test_probe_convres_matches_plain(card, variant, bsz, h, w):
+    args = _p3_inputs(card, bsz, h, w, h * w + 60)
+    got = p3.convres(*args, variant=variant)
+    tol = p3.TOL_BF16_MISH if p3.VARIANTS[variant][2] == "bf16" else p3.TOL
+    _err_ok(variant, got, p3.plain(*args, variant=variant), tol)
+
+
+def test_probe_convres_nomask_is_wrong_only_at_the_border_rows(card):
+    args = _p3_inputs(card, 1, 40, 36, 61)
+    diff = (p3.convres(*args, variant="nomask").float()
+            - p3.convres(*args, variant="rowmask").float()).abs().amax(dim=(0, 2, 3))
+    tol = pu.scaled_tol(p3.plain(*args, variant="rowmask"), p3.TOL)
+    assert float(diff[2:-2].max()) == 0.0 and float(diff[[0, -1]].min()) > tol
+
+
+@pytest.mark.parametrize("bsz,h,w", [(2, 20, 70), (1, 64, 64)])
+def test_probe_cmajor_conv_matches_plain(card, bsz, h, w):
+    r = _rand(card, h * w + 70)
+    x = r(bsz, 32, h, w).to(torch.bfloat16)
+    wmat = p4.to_wmat(r(3, 3, 32, 32) / 17.0).to(torch.bfloat16)
+    _err_ok("cmajor conv", p4.cmajor_conv(x, wmat), p4.plain(x, wmat), p4.TOL)
+
+
+def test_probe_kernels_refuse_what_they_cannot_take(card):
+    x, g, b, b_out, w_kv, w_eff = _p1_inputs(card, 8, 1024, 128)
+    with pytest.raises(TypeError):
+        p1.pass_a(x.float(), g, b, w_kv.float())
+    with pytest.raises(ValueError):
+        p1.pass_a(x, g, b, w_kv, group=3)
+    with pytest.raises(ValueError):
+        p1.pass_b(x[:, :, :64].contiguous(), g[:64], b[:64], w_eff[:, :64, :64],
+                  b_out[:64])
+    with pytest.raises(ValueError):
+        p2.copy_kernel(x, 1000)
+    with pytest.raises(ValueError):
+        p3.convres(torch.zeros(1, 8, 8, 32, device=card, dtype=torch.bfloat16),
+                   *_p3_inputs(card, 1, 8, 8, 0)[1:])
+    with pytest.raises(ValueError):
+        p4.cmajor_conv(torch.zeros(1, 16, 8, 8, device=card, dtype=torch.bfloat16),
+                       torch.zeros(32, 288, device=card))
