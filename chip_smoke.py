@@ -34,7 +34,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    run once more with the counters zeroed;
 7. the x2 3x3 convs through the Winograd kernel (K6), the same shapes
    and weights, with and without mish, against its plain version (its
-   bf16 roundings of V and U), timed against F.conv2d; counted likewise;
+   bf16 roundings of V and U), timed against F.conv2d (TFLOP/s, share of
+   the bound, ratio to cuDNN; eager like every kernel here, and replayed
+   from CUDA graphs beside it), with its ptxas line (no spill allowed);
+   counted likewise, its weight-transform launches too;
 8. linear attention (K4) at the x2 UNet's five attention sites above
    512 tokens (B = 8), q, k, v from LN(x) and the site's own qkv
    weights, against its plain version; counted likewise;
@@ -184,7 +187,8 @@ PER = {("attn_ctx", "x2_sample"): f"x2 chain step at B={B}",
        ("conv3x3", "x2_seam"):
            f"x2 ResnetBlock seams at B={B}, one each at {_SEAMS_AT}",
        ("winograd", "x2_conv3x3"):
-           f"x2 3x3 convs at B={B}, one each at {_SEAMS_AT}, no mish",
+           f"x2 3x3 convs at B={B}, one each at {_SEAMS_AT}, no mish; each "
+           f"with its weight-transform launch (winograd_weights)",
        ("lin_ctx", "x2_attn_sites"):
            f"x2 attention sites at B={B}, the five above 512 tokens",
        ("lin_out", "x2_attn_sites"):
@@ -212,9 +216,10 @@ def log(*a):
 
 
 def accumulate(results, name, path, n, ms, plain_ms, bnd, cost, err,
-               library_ms=None):
+               library_ms=None, **extra_ms):
     """Adds n launches' kernel, plain, bound (and library) times and cost
-    to the kernels-line entry of (name, path)."""
+    to the kernels-line entry of (name, path); `extra_ms` are more times
+    (keys of the entry too)."""
     acc = results.setdefault((name, path), dict(
         ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, bytes=0,
         flops=0, launches=0, library_ms=None))
@@ -226,6 +231,8 @@ def accumulate(results, name, path, n, ms, plain_ms, bnd, cost, err,
     acc["bytes"] += n * cost["bytes"]
     acc["flops"] += n * cost["flops"]
     acc["max_abs_err"] = max(acc["max_abs_err"], err)
+    for k, v in extra_ms.items():
+        acc[k] = acc.get(k, 0.0) + n * v
 
 
 def tolerance(want, dtype) -> float:
@@ -792,29 +799,70 @@ def phase_seam(results, net):
     log(f"  seams: {launched['conv3x3']} K5 launches, outputs finite")
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device ms of fn replayed from a CUDA graph (CUDA events over
+    `iters` replays): the time of its kernels without the host's launch
+    gaps between them, which at a few tens of us a call would hide them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
+
+
+def winograd_ptxas():
+    """Prints K6's ptxas line per compiled kernel (registers, spill
+    bytes) from the log its build kept; fails on a spill or when the log
+    holds no conv kernel."""
+    report = _build.ptxas_report("winograd")
+    assert any("winograd_kernel" in k["kernel"] for k in report), report
+    for k in report:
+        log(f"  ptxas winograd: {k['kernel']}: {k['registers']} registers, "
+            f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} "
+            f"bytes spill loads")
+        assert k["spill_stores"] == k["spill_loads"] == 0, k
+
+
 def phase_winograd(results, net):
     """K6 at the x2 3x3 convs: the seams' shapes and conv1 weights."""
+    winograd_ptxas()
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(22)
         log(f"x2 3x3 convs through Winograd (K6), B={B}, {dtype}:")
         for x, p, hw, c in _seam_inputs(net, dtype, gen):
             w, b = p["w1"], p["b1"]
+            cost = wg.cost(B, hw, hw, c, c, x.element_size())
+            bnd, by = bound_ms(cost, dtype)
             with torch.no_grad():
                 err = max(check_close(
                     f"winograd {hw}^2 c{c} mish={m}",
                     wg.conv3x3_winograd(x, w, b, apply_mish=m),
                     wg.plain(x, w, b, m), dtype) for m in (True, False))
-                ms = cuda_ms(lambda: wg.conv3x3_winograd(x, w, b), 10)
+                conv = lambda: wg.conv3x3_winograd(x, w, b)
+                ms, lib_ms = cuda_ms(conv, 20), cuda_ms(cudnn_conv(x, w, b), 20)
                 plain_ms = cuda_ms(lambda: wg.plain(x, w, b), 5)
-                lib_ms = cuda_ms(cudnn_conv(x, w, b), 10)
-            cost = wg.cost(B, hw, hw, c, c, x.element_size())
-            bnd, by = bound_ms(cost, dtype)
-            log(f"    winograd {hw}^2 c{c} {dtype}: kernel {ms * 1e3:.1f} us, "
-                f"plain {plain_ms * 1e3:.1f} us, cuDNN F.conv2d "
-                f"{lib_ms * 1e3:.1f} us, bound {bnd * 1e3:.1f} us ({by})")
+                g_ms = graph_ms(conv, 20)
+                g_lib_ms = graph_ms(cudnn_conv(x, w, b), 20)
+            log(f"    winograd {hw}^2 c{c} {dtype}: kernel {ms * 1e3:.1f} us "
+                f"({cost['flops'] / ms / 1e9:.1f} TFLOP/s of Winograd products, "
+                f"{bnd / ms:.3f} of the bound, {ms / lib_ms:.2f}x cuDNN), plain "
+                f"{plain_ms * 1e3:.1f} us, cuDNN F.conv2d {lib_ms * 1e3:.1f} us, "
+                f"bound {bnd * 1e3:.1f} us ({by}); from a CUDA graph: kernel "
+                f"{g_ms * 1e3:.1f} us ({cost['flops'] / g_ms / 1e9:.1f} TFLOP/s, "
+                f"{bnd / g_ms:.3f} of the bound), cuDNN {g_lib_ms * 1e3:.1f} us "
+                f"({g_ms / g_lib_ms:.2f}x)")
             if dtype == torch.bfloat16:
                 accumulate(results, "winograd", "x2_conv3x3", 1, ms, plain_ms,
-                           bnd, cost, err, lib_ms)
+                           bnd, cost, err, lib_ms, graph_ms=g_ms,
+                           library_graph_ms=g_lib_ms)
+    r = results[("winograd", "x2_conv3x3")]
+    for what, k, lib in (("eager", "ms", "library_ms"),
+                         ("from CUDA graphs", "graph_ms", "library_graph_ms")):
+        log(f"  three convs, bf16, {what}: kernel {r[k] * 1e3:.1f} us, cuDNN "
+            f"{r[lib] * 1e3:.1f} us ({r[k] / r[lib]:.2f}x), bound "
+            f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_ms'] / r[k]:.3f} of it) "
+            f"[{card_line()}]")
     gen = torch.Generator(device="cuda").manual_seed(22)
     convs = [(x, p["w1"], p["b1"]) for x, p, _, _ in
              _seam_inputs(net, torch.bfloat16, gen)]
@@ -824,10 +872,12 @@ def phase_winograd(results, net):
         outs = [wg.conv3x3_winograd(*a) for a in convs]
     torch.cuda.synchronize()
     launched = counts()
-    assert launched["winograd"] == len(SEAMS), launched
+    assert launched["winograd"] == launched["winograd_weights"] == len(SEAMS), \
+        launched
     assert all(torch.isfinite(o).all() for o in outs)
     results[("winograd", "x2_conv3x3")]["launches"] = launched["winograd"]
-    log(f"  3x3 convs: {launched['winograd']} K6 launches, outputs finite")
+    log(f"  3x3 convs: {launched['winograd']} K6 launches, "
+        f"{launched['winograd_weights']} of its weight transform, outputs finite")
 
 
 def _site_qkv(net, dtype, gen):
@@ -997,8 +1047,8 @@ def main() -> int:
     t0 = time.time()
     _build.build_all(KERNELS)
     log(f"built {KERNELS} in {time.time() - t0:.1f} s")
-    for name, text in _build.BUILD_LOGS.items():
-        log(f"--- ptxas {name} ---\n{text.strip()}")
+    for name in KERNELS:
+        log(f"--- ptxas {name} ---\n{_build.build_log(name).strip()}")
 
     results: dict = {}
     phase_attention(results)
@@ -1030,6 +1080,7 @@ def main() -> int:
                      >= r["flops"] / PEAK_FLOPS[torch.bfloat16]
                      else "operations"),
         "library_ms": r["library_ms"],
+        **{k: r[k] for k in ("graph_ms", "library_graph_ms") if k in r},
     } for (name, path), r in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

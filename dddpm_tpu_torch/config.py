@@ -4,7 +4,11 @@ The reference's config-dict contract and flags (-m/-d/-e/-bs/-is/-mute/
 -downsample) plus the JAX package's --data-root, --T, --compute-dtype,
 --seed, --grad-accum and --prefetch.  Its TPU-only flags (--mesh-shape,
 --fsdp, --use-pallas, --remat) have no counterpart; --device picks the
-card (the default) or 'cpu' for the plain PyTorch path.
+card (the default) or 'cpu' for the plain PyTorch path.  The JAX
+package's two kernel selectors are config keys here as there:
+use_pallas_attention ('auto' | True | False, pinned by build_model) and
+use_pallas_resample (True | False); False takes the plain path on the
+card too.
 """
 from __future__ import annotations
 
@@ -54,6 +58,11 @@ CONFIG_PORT: Dict = {
     "compute_dtype": "bfloat16",  # conv / attention compute dtype
     "grad_accum": 2,              # micro-steps per optimizer step
     "seed": 0,
+    # the attention block's kernels (K1a/K1b, or K1c): 'auto' = on when
+    # the model is built on a CUDA card (models/factory.py pins it)
+    "use_pallas_attention": "auto",
+    # the resamplers' fused ConvResBlock kernels (K2/K3)
+    "use_pallas_resample": True,
     "prefetch": 2,                # host batch-prep prefetch depth (0 = off)
     # the AE dDDPM variant's recon branch on the t < t_rec_max rows only
     # (models/dddpm.py:DownsampleDiffusionAutoencoder)

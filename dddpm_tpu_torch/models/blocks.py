@@ -16,7 +16,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dddpm_tpu_torch.ops.attention_block import DIM_HEAD, attention_block
+from dddpm_tpu_torch.ops.attention_block import (
+    DIM_HEAD,
+    attention_block,
+    reference_impl,
+)
 from dddpm_tpu_torch.ops.math import mish
 
 
@@ -180,11 +184,15 @@ class PreNormLinearAttention(nn.Module):
     (ops/attention_block.py): the two kernels on the card above 512
     tokens, the plain version otherwise.  Under torch.no_grad() on the
     card the result is written over x's storage (in the UNet nothing
-    reads x after the block), as the JAX kernel aliases its output."""
+    reads x after the block), as the JAX kernel aliases its output.
+    With use_pallas False (the config's use_pallas_attention, as the
+    JAX module's flag) the plain version runs on the card too."""
 
-    def __init__(self, dim: int, compute_dtype=torch.float32):
+    def __init__(self, dim: int, compute_dtype=torch.float32,
+                 use_pallas: bool = True):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.use_pallas = use_pallas
         self.norm = ChannelLayerNorm(dim)
         self.attn = LinearAttention(dim, compute_dtype=compute_dtype)
 
@@ -193,11 +201,13 @@ class PreNormLinearAttention(nn.Module):
         # no copy when x is channels_last
         tokens = x.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
         w_qkv, w_out = self.attn.matrices(self.compute_dtype)
-        # without autograd the block owns its input and writes over it
-        out = attention_block(tokens, self.norm.g, self.norm.b, w_qkv, w_out,
-                              self.attn.to_out.bias.float(),
-                              self.attn.dim_head,
-                              inplace=not torch.is_grad_enabled())
+        args = (tokens, self.norm.g, self.norm.b, w_qkv, w_out,
+                self.attn.to_out.bias.float(), self.attn.dim_head)
+        if self.use_pallas:
+            # without autograd the block owns its input and writes over it
+            out = attention_block(*args, inplace=not torch.is_grad_enabled())
+        else:
+            out = reference_impl(*args)
         return out.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 

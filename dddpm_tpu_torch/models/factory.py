@@ -21,7 +21,11 @@ from dddpm_tpu_torch.models.dddpm import (
 from dddpm_tpu_torch.models.init import init_params_
 from dddpm_tpu_torch.models.resample import get_downsampling, get_upsampling
 from dddpm_tpu_torch.models.schedule import DiffusionSchedule
-from dddpm_tpu_torch.models.unet import Unet, compute_dtype_of
+from dddpm_tpu_torch.models.unet import (
+    Unet,
+    compute_dtype_of,
+    resolve_use_pallas,
+)
 from dddpm_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -49,10 +53,14 @@ def build_model(config: dict, device: DeviceLike = None):
     """Returns (net, process, init_fn, config), config with model_size.
 
     The net is built on `device` (the CUDA card when None; pass 'cpu'
-    for the plain path) in eval mode.  init_fn(seed) re-draws every
+    for the plain path) in eval mode; the returned config holds
+    use_pallas_attention resolved to a bool.  init_fn(seed) re-draws every
     parameter from a torch.Generator seeded with `seed`."""
     dev = resolve_device(device)
     config = dict(config)
+    # pin the attention path into the config (and so the checkpoint), as
+    # dddpm_tpu/models/factory.py:98 does: 'auto' resolved here
+    config["use_pallas_attention"] = resolve_use_pallas(config, dev)
     color_channels = get_color_channels(config["dataset"])
     size = config["image_size"]
     schedule = DiffusionSchedule.create(config["beta_schedule"], config["T"],

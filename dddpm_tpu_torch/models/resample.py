@@ -86,13 +86,16 @@ class ConvResBlock(nn.Module):
     and backward).  With no dropout active the residual and the scaling
     run inside that call too; with dropout active the call computes the
     core alone and dropout, residual and scaling follow outside, as the
-    JAX module dispatches (resample.py:203-252)."""
+    JAX module dispatches (resample.py:203-252).  use_pallas False (the
+    config's use_pallas_resample, as the JAX module's flag) closes the
+    gate: the plain path runs on the card too."""
 
     def __init__(self, dim: int, in_channels: int, out_channels: int,
                  upsample: bool = False, downsample: bool = False,
                  dropout: float = 0.0, residual: bool = False,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, use_pallas: bool = True):
         super().__init__()
+        self.use_pallas = use_pallas
         if upsample and downsample:
             raise ValueError("a block scales up or down, not both")
         self.dim, self.in_channels = dim, in_channels
@@ -110,10 +113,11 @@ class ConvResBlock(nn.Module):
         return "down" if self.downsample else "up" if self.upsample else None
 
     def fused_shape_ok(self, hh: int, ww: int) -> bool:
-        """The JAX package's gate, plus the channel widths the kernel
-        takes (cm 32, cio 32/64/128)."""
+        """The JAX package's gate (use_pallas and the shapes), plus the
+        channel widths the kernel takes (cm 32, cio 32/64/128)."""
         th = min(FUSED_ROW_TILE, hh)
-        return (self.in_channels == self.out_channels
+        return (self.use_pallas
+                and self.in_channels == self.out_channels
                 and (4 * self.in_channels) % 128 == 0
                 and (4 * self.dim) % 128 == 0
                 and ww % 4 == 0
@@ -152,7 +156,7 @@ class ConvResNet(nn.Module):
     def __init__(self, dim: int, in_channels: int, out_channels: int,
                  n_downsamples: int = 1, upsample: bool = False,
                  dropout: float = 0.0, n_blocks: int = 1,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, use_pallas: bool = True):
         super().__init__()
         dt = dict(compute_dtype=compute_dtype)
         self.explode = Conv2d(in_channels, dim, 1, **dt)
@@ -160,9 +164,10 @@ class ConvResNet(nn.Module):
         for _ in range(n_downsamples):
             blocks.append(ConvResBlock(dim // 2, dim, dim, upsample=upsample,
                                        downsample=not upsample,
-                                       dropout=dropout, residual=True, **dt))
+                                       dropout=dropout, residual=True,
+                                       use_pallas=use_pallas, **dt))
             blocks += [ConvResBlock(dim // 2, dim, dim, dropout=dropout,
-                                    residual=True, **dt)
+                                    residual=True, use_pallas=use_pallas, **dt)
                        for _ in range(n_blocks - 1)]
         self.blocks = nn.ModuleList(blocks)
         self.condense = Conv2d(dim, out_channels, 1, **dt)
@@ -172,6 +177,11 @@ class ConvResNet(nn.Module):
         for block in self.blocks:
             x = block(x)
         return self.condense(x)
+
+
+def _use_pallas(config: dict) -> bool:
+    """The JAX package's use_pallas_resample selector (default True)."""
+    return bool(config.get("use_pallas_resample", True))
 
 
 def get_downsampling(config: dict, x_shape: Tuple[int, int, int],
@@ -192,7 +202,8 @@ def get_downsampling(config: dict, x_shape: Tuple[int, int, int],
         return ConvResNet(config["d_chans"], c, config["unet_in"], n_down,
                           upsample=False, dropout=config["d_dropout"],
                           n_blocks=config["d_n_blocks"],
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype,
+                          use_pallas=_use_pallas(config))
     raise NotImplementedError(f'Downsampling method for "{mode}" not implemented!')
 
 
@@ -211,5 +222,6 @@ def get_upsampling(config: dict, x_shape: Tuple[int, int, int],
         return ConvResNet(config["d_chans"], config["unet_in"], c, n_down,
                           upsample=True, dropout=config["d_dropout"],
                           n_blocks=config["u_n_blocks"],
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype,
+                          use_pallas=_use_pallas(config))
     raise NotImplementedError(f'Upsampling method for "{mode}" not implemented!')

@@ -35,35 +35,48 @@ def compute_dtype_of(config: dict) -> torch.dtype:
             else torch.float32)
 
 
+def resolve_use_pallas(config: dict, device: torch.device) -> bool:
+    """use_pallas_attention as a bool: 'auto' (the default) is True for a
+    model built on a CUDA card and False on the CPU, as the JAX package
+    resolves it by its backend (dddpm_tpu/models/unet.py:34-48).
+    build_model writes the result back into the config."""
+    use_pallas = config.get("use_pallas_attention", "auto")
+    if use_pallas == "auto":
+        return torch.device(device).type == "cuda"
+    return bool(use_pallas)
+
+
 class Unet(nn.Module):
     """UNet(dim, dim_mults) predicting eps(x_t, t) in x_t's shape (NCHW)."""
 
     def __init__(self, dim: int = 128, in_channels: int = 3,
                  dim_mults: Sequence[int] = (1, 2, 2, 2),
-                 dropout: float = 0.0, compute_dtype=torch.float32):
+                 dropout: float = 0.0, compute_dtype=torch.float32,
+                 use_pallas: bool = True):
         super().__init__()
         self.compute_dtype = compute_dtype
         dims = [in_channels] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         self.levels = len(in_out)
         dt = dict(compute_dtype=compute_dtype)
+        at = dict(dt, use_pallas=use_pallas)
 
         self.time_mlp = TimeMLP(dim)
         resnets, attns, downs, ups = [], [], [], []
         for ind, (dim_in, dim_out) in enumerate(in_out):
             resnets += [ResnetBlock(dim_in, dim_out, dim, dropout=dropout, **dt),
                         ResnetBlock(dim_out, dim_out, dim, dropout=dropout, **dt)]
-            attns.append(PreNormLinearAttention(dim_out, **dt))
+            attns.append(PreNormLinearAttention(dim_out, **at))
             if ind < self.levels - 1:
                 downs.append(Downsample(dim_out, **dt))
         mid = dims[-1]
         resnets.append(ResnetBlock(mid, mid, dim, **dt))
-        attns.append(PreNormLinearAttention(mid, **dt))
+        attns.append(PreNormLinearAttention(mid, **at))
         resnets.append(ResnetBlock(mid, mid, dim, **dt))
         for dim_in, dim_out in reversed(in_out[1:]):
             resnets += [ResnetBlock(dim_out * 2, dim_in, dim, **dt),
                         ResnetBlock(dim_in, dim_in, dim, **dt)]
-            attns.append(PreNormLinearAttention(dim_in, **dt))
+            attns.append(PreNormLinearAttention(dim_in, **at))
             ups.append(Upsample(dim_in, **dt))
         self.resnets = nn.ModuleList(resnets)
         self.attns = nn.ModuleList(attns)
@@ -74,10 +87,17 @@ class Unet(nn.Module):
 
     @classmethod
     def from_config(cls, config: dict) -> "Unet":
+        """The config's UNet; use_pallas_attention must be resolved
+        already (build_model pins it)."""
+        use_pallas = config.get("use_pallas_attention", "auto")
+        if use_pallas == "auto":
+            raise ValueError("use_pallas_attention='auto' is resolved by "
+                             "build_model (resolve_use_pallas)")
         return cls(dim=config["unet_chan"], in_channels=config["unet_in"],
                    dim_mults=tuple(config["unet_dims"]),
                    dropout=config["unet_dropout"],
-                   compute_dtype=compute_dtype_of(config))
+                   compute_dtype=compute_dtype_of(config),
+                   use_pallas=bool(use_pallas))
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W) in [-1, 1]; t: (B,) integer timesteps."""

@@ -5,11 +5,13 @@ Each source under dddpm_tpu_torch/csrc/ is compiled on first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
-into dddpm_tpu_torch/_build/ (listed in .gitignore) as a shared library
-with a plain C interface, then loaded with ctypes.  The library's file
-name carries a hash of its source, so an edited source is rebuilt and
-an unchanged one is reused.  `build_all` starts one nvcc per source at
-once.  Nothing is compiled when the package is imported.
+(plus a -D flag per define asked for) into dddpm_tpu_torch/_build/
+(listed in .gitignore) as a shared library with a plain C interface,
+then loaded with ctypes.  The library's file name carries a hash of its
+source and defines, so an edited source is rebuilt and an unchanged one
+is reused; nvcc's ptxas report is kept beside it (`build_log`).
+`build_all` starts one nvcc per source at once.  Nothing is compiled
+when the package is imported.
 """
 from __future__ import annotations
 
@@ -19,16 +21,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, shared memory, spills) of each build
-BUILD_LOGS: Dict[str, str] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -40,20 +40,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+def _target(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """The library of csrc/<name>.cu built with `defines`; its nvcc log
+    is the same path with the suffix .log."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for d in defines:
+        digest.update(b"\0-D" + d.encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    """Starts nvcc for csrc/<name>.cu unless its library exists."""
-    out = _target(name)
-    if out.exists():
+def _start(name: str, defines: Tuple[str, ...] = ()):
+    """Starts nvcc for csrc/<name>.cu unless its library and log exist."""
+    out = _target(name, defines)
+    if out.exists() and out.with_suffix(".log").exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -64,10 +68,12 @@ def _finish(name: str, started) -> None:
         return
     proc, tmp, out = started
     log, _ = proc.communicate()
-    BUILD_LOGS[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-    os.replace(tmp, out)   # atomic: concurrent builders never see half a file
+    # atomic: concurrent builders never see half a file
+    tmp.with_suffix(".logtmp").write_text(log)
+    os.replace(tmp.with_suffix(".logtmp"), out.with_suffix(".log"))
+    os.replace(tmp, out)
 
 
 def build_all(names: Iterable[str]) -> None:
@@ -78,14 +84,39 @@ def build_all(names: Iterable[str]) -> None:
         _finish(n, started[n])
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, building it if needed."""
-    lib = _LIBS.get(name)
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (compiled with a -D flag per
+    entry of `defines`), building it if needed."""
+    key = (name, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        _LIBS[name] = lib
+        _finish(name, _start(name, key[1]))
+        lib = _LIBS[key] = ctypes.CDLL(str(_target(*key)))
     return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (the `-Xptxas -v` report) for csrc/<name>.cu's
+    present library, kept beside it by the build that made it; raises
+    when the library has not been built."""
+    return _target(name).with_suffix(".log").read_text()
+
+
+def ptxas_report(name: str) -> List[dict]:
+    """Per kernel of csrc/<name>.cu's library: its mangled name,
+    registers and spill bytes, parsed from `build_log(name)`."""
+    out: List[dict] = []
+    for line in build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            out.append({"kernel": line.split("'")[1]})
+        elif out and "bytes spill stores" in line:
+            words = line.replace(",", " ").split()
+            out[-1]["spill_stores"] = int(words[words.index("spill") - 2])
+            out[-1]["spill_loads"] = int(words[-4])
+        elif out and "Used" in line and "registers" in line:
+            words = line.split()
+            out[-1]["registers"] = int(words[words.index("Used") + 1])
+    return out
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -13,7 +13,8 @@ package's layout.
 - `transform_weights` and `conv3x3_winograd_ref`: the f32 tiling
   reference (the counterparts of the JAX module's).
 - `conv3x3_winograd`: on a CUDA tensor the hand-written kernel
-  (csrc/winograd.cu, K6); on a CPU tensor `plain`, which repeats the
+  (csrc/winograd.cu, K6: its 16 products on the tensor cores, bf16
+  operands and f32 sums); on a CPU tensor `plain`, which repeats the
   kernel's roundings: the transformed input tiles V = B^T d B and the
   transformed weights U = G g G^T are rounded to bf16 (whatever x's
   dtype, as the TPU kernel feeds its matrix unit), the 16 products sum
@@ -43,17 +44,33 @@ G = np.array([[1, 0, 0],
 AT = np.array([[1, 1, 1, 0],
                [0, 1, -1, -1]], np.float32)
 
-CIN_STEP = 16     # CK in csrc/winograd.cu: input channels per stage
-COUT_STEP = 32    # CO in csrc/winograd.cu: output channels per block
+# CK in csrc/winograd.cu: input channels per stage, one mma k step
+CIN_STEP = 16
+# the Cout granule the wrapper takes; a block's 64 output channels mask
+# the channels past Cout
+COUT_STEP = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the C entry; chip_smoke.py reads it
-LAUNCHES = {"winograd": 0}
+# launches of the conv and of the weight transform; chip_smoke.py reads it
+LAUNCHES = {"winograd": 0, "winograd_weights": 0}
+
+
+_G_ON: dict = {}
+
+
+def _g_on(device: torch.device) -> torch.Tensor:
+    """G on `device`, copied there once: a copy from pageable host memory
+    would wait on the device at every call (and cannot be captured in a
+    CUDA graph)."""
+    g = _G_ON.get(device)
+    if g is None:
+        g = _G_ON[device] = torch.from_numpy(G).to(device)
+    return g
 
 
 def transform_weights(w: torch.Tensor) -> torch.Tensor:
     """(3, 3, Cin, Cout) -> (4, 4, Cin, Cout) f32: U = G g G^T per channel."""
-    g = torch.from_numpy(G).to(w.device)
+    g = _g_on(w.device)
     u = torch.einsum("ij,jkcf->ikcf", g, w.float())
     return torch.einsum("ikcf,lk->ilcf", u, g)
 
@@ -122,17 +139,35 @@ def plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype)
 
 
-def _lib():
-    lib = _build.load("winograd")
+def library(defines=()):
+    """csrc/winograd.cu's library (built with `defines`, see _build.load),
+    its C entries typed."""
+    lib = _build.load("winograd", tuple(defines))
     if lib.winograd_conv.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.winograd_conv.argtypes = [vp] * 4 + [i] * 7 + [vp]
         lib.winograd_conv.restype = i
+        lib.winograd_weights.argtypes = [vp, vp, i, i, i, vp]
+        lib.winograd_weights.restype = i
     return lib
 
 
+def weights_kernel(w: torch.Tensor) -> torch.Tensor:
+    """transform_weights(w) rounded to bf16, as (16, Cin, Cout), by one
+    launch on w's card (the f32 sums in transform_weights' order)."""
+    cin, cout = w.shape[2], w.shape[3]
+    wt = (w if w.dtype in _DTYPES else w.float()).contiguous()
+    u = torch.empty((16, cin, cout), dtype=torch.bfloat16, device=w.device)
+    LAUNCHES["winograd_weights"] += 1
+    _build.check(library().winograd_weights(_build.ptr(wt), _build.ptr(u), cin,
+                                         cout, _DTYPES[wt.dtype],
+                                         _build.stream(w)), "winograd_weights")
+    return u
+
+
 def _kernel(x, w, b, apply_mish):
-    """K6 on a CUDA tensor; raises on what it does not take."""
+    """K6 on a CUDA tensor (the weight transform, then the conv); raises
+    on what it does not take."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
     if x.ndim != 4 or not x.is_contiguous():
@@ -148,12 +183,12 @@ def _kernel(x, w, b, apply_mish):
         raise ValueError(f"w must be (3, 3, {cin}, Cout) on {x.device}")
     if tuple(b.shape) != (cout,) or b.device != x.device:
         raise ValueError(f"b must be ({cout},) on {x.device}")
-    u = transform_weights(w).to(torch.bfloat16).contiguous()
+    lib = library()
+    p = _build.ptr
+    u = weights_kernel(w)
     bias = b.float().contiguous()
     y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
-    lib = _lib()
     LAUNCHES["winograd"] += 1
-    p = _build.ptr
     _build.check(lib.winograd_conv(p(x), p(u), p(bias), p(y), bsz, h, wd, cin,
                                    cout, int(apply_mish), _DTYPES[x.dtype],
                                    _build.stream(x)), "winograd_conv")

@@ -2,7 +2,10 @@
 
 generate_samples draws ceil(fid_samples / batch_size) batches; batch i
 uses seed fold_seed(seed, i).  The output arrays are (n_batches, B, H,
-W, C) float32 in [0, 255], NHWC, as the JAX package writes them.
+W, C) float32 in [0, 255], NHWC.  That is the JAX package's layout and
+dtype at float32 configs only: under compute_dtype bfloat16 its
+fix_samples returns bfloat16 (saved as a '<V2' npy that np.load cannot
+read back as numbers), where the port keeps float32 at every config.
 """
 from __future__ import annotations
 

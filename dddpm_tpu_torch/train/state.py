@@ -9,9 +9,12 @@ t, without a sync).
 Deliberate differences from JAX: the clip is optax's clip_by_global_norm
 (scale by max_norm / |g| only when |g| >= max_norm), not
 torch.nn.utils.clip_grad_norm_, which divides by |g| + 1e-6.  Dropout
-masks come from torch's generator (seeded by seed_everything), not from
-JAX's keys, so the same seed drops other units; comparisons with the JAX
-package run with dropout 0 and inject JAX's t and eps.
+masks come from torch's default generators, which each step reseeds from
+its own key (fold_seed(fold_seed(seed, step), DROPOUT_KEY)), as JAX keys
+dropout by fold_in(rng, step): a run resumed at step s draws the masks
+an unbroken run draws.  They are other numbers than JAX's, so
+comparisons with the JAX package run with dropout 0 and inject JAX's t
+and eps.
 """
 from __future__ import annotations
 
@@ -23,6 +26,10 @@ from torch import nn
 
 from dddpm_tpu_torch.models.ddpm import fold_seed
 from dddpm_tpu_torch.train.ema import ema_update
+
+# fold_seed key of a step's dropout seed; the micro-batches take keys
+# 0 .. grad_accum - 1
+DROPOUT_KEY = 1 << 20
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -94,7 +101,9 @@ def make_train_step(process, grad_accum: int = 2, ema_decay: float = 0.995,
     batch is (grad_accum, B, H, W, C) on the net's device.  Micro-batch i
     of step s draws its t and eps from key fold_seed(fold_seed(seed, s),
     i); t (grad_accum, B) and eps (grad_accum, B, *sample_shape) may be
-    given instead.  The state is updated in place."""
+    given instead.  The default generators (dropout) are seeded from
+    fold_seed(fold_seed(seed, s), DROPOUT_KEY).  The state is updated in
+    place."""
     use_ema = ema_decay > 0
 
     def train_step(state: TrainState, batch: torch.Tensor,
@@ -107,6 +116,7 @@ def make_train_step(process, grad_accum: int = 2, ema_decay: float = 0.995,
             else:
                 p.grad.zero_()
         step_key = fold_seed(state.seed, state.step)
+        torch.manual_seed(fold_seed(step_key, DROPOUT_KEY))   # CUDA too
         metrics = []
         for i in range(grad_accum):
             obj, m = process.loss_fn(

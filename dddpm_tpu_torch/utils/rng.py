@@ -1,8 +1,8 @@
 """Deterministic seeding (port of dddpm_tpu/utils/rng.py).
 
 The port's draws are keyed explicitly (fold_seed in models/ddpm.py); the
-global generators that remain (python, numpy, torch's, which dropout
-uses) are seeded here."""
+global generators that remain (python, numpy, torch's) are seeded here;
+train_step reseeds torch's at each step for its dropout masks."""
 from __future__ import annotations
 
 import os

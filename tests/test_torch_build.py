@@ -1,0 +1,60 @@
+"""The kernel build's bookkeeping (dddpm_tpu_torch/ops/_build.py), on the
+CPU: which library a source and its defines map to, and the ptxas report
+read back from the log kept beside it.  Nothing is compiled here."""
+import pytest
+
+from dddpm_tpu_torch.ops import _build
+
+LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z15winograd_kernelIfEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _Z15winograd_kernelIfEvPKT_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z14weights_kernelIfEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _Z14weights_kernelIfEvPKT_
+    8 bytes stack frame, 20 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+
+
+@pytest.fixture
+def build_dir(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    return tmp_path
+
+
+def test_defines_name_their_own_library(build_dir):
+    plain = _build._target("winograd")
+    gated = _build._target("winograd", ("WINOGRAD_SKIP=1",))
+    assert plain.parent == gated.parent == build_dir
+    assert plain != gated != _build._target("winograd", ("WINOGRAD_SKIP=2",))
+    assert plain == _build._target("winograd", ())
+    assert plain.name.startswith("libwinograd_") and plain.suffix == ".so"
+
+
+def test_ptxas_report_reads_the_kept_log(build_dir):
+    target = _build._target("winograd")
+    target.write_bytes(b"")
+    target.with_suffix(".log").write_text(LOG)
+    assert _build.build_log("winograd") == LOG
+    assert _build.ptxas_report("winograd") == [
+        {"kernel": "_Z15winograd_kernelIfEvPKT_", "spill_stores": 0,
+         "spill_loads": 0, "registers": 128},
+        {"kernel": "_Z14weights_kernelIfEvPKT_", "spill_stores": 20,
+         "spill_loads": 12, "registers": 32}]
+
+
+def test_a_library_without_its_log_is_rebuilt(build_dir, monkeypatch):
+    """build_log raises before a build; a library whose log is missing
+    goes back to nvcc (here a stand-in that fails), one with its log is
+    reused."""
+    with pytest.raises(FileNotFoundError):
+        _build.build_log("winograd")
+    target = _build._target("winograd")
+    target.write_bytes(b"")
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build._finish("winograd", _build._start("winograd"))
+    target.with_suffix(".log").write_text(LOG)
+    assert _build._start("winograd") is None

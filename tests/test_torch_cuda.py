@@ -10,6 +10,7 @@ need not have.)
 import pytest
 import torch
 
+from dddpm_tpu_torch.models.factory import build_model
 from dddpm_tpu_torch.ops import attention_block as ab
 from dddpm_tpu_torch.ops import conv3x3 as c3
 from dddpm_tpu_torch.ops import convres as cr
@@ -234,20 +235,39 @@ def test_conv3x3_kernel_matches_plain(card, dtype, mode, bsz, h, w, cin, cout):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("apply_mish", [False, True])
-@pytest.mark.parametrize("bsz,h,w,cin,cout", [(2, 16, 16, 128, 128),
-                                              (1, 14, 22, 128, 256),
-                                              (1, 32, 32, 256, 64)])
+@pytest.mark.parametrize("bsz,h,w,cin,cout", [
+    (2, 16, 16, 128, 128), (1, 14, 22, 128, 256), (1, 32, 32, 256, 64),
+    # the three x2 3x3 convs at B = 2
+    (2, 128, 128, 128, 128), (2, 64, 64, 256, 256), (2, 32, 32, 256, 256),
+    (1, 16, 16, 16, 64),      # Cin 16: a single stage
+    (1, 16, 16, 64, 32),      # Cout 32: half of a 64-wide block masked
+    (1, 18, 30, 32, 96),      # partial bands both ways, Cout 96
+    (3, 20, 36, 48, 160)])    # Cout 160: the last 64-wide block half masked
 def test_winograd_kernel_matches_plain(card, dtype, apply_mish, bsz, h, w, cin,
                                        cout):
     """K6 against the plain version with its bf16 roundings of V and U;
-    14 x 22 leaves partial 8 x 16 bands."""
+    14 x 22, 18 x 30 and 20 x 36 leave partial 16 x 16-pixel bands; one
+    launch of the conv and one of the weight transform."""
     r = _rand(card, h * w + cin + cout + 1)
     x = r(bsz, h, w, cin).to(dtype)
     wt, b = r(3, 3, cin, cout) / (9 * cin) ** 0.5, 0.1 * r(cout)
-    before = wg.LAUNCHES["winograd"]
+    before = dict(wg.LAUNCHES)
     got = wg.conv3x3_winograd(x, wt, b, apply_mish=apply_mish)
-    assert wg.LAUNCHES["winograd"] == before + 1
+    assert wg.LAUNCHES == {k: v + 1 for k, v in before.items()}
     _close(got, wg.plain(x, wt, b, apply_mish), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_winograd_weight_transform_matches_plain(card, dtype):
+    """K6's weight-transform launch against transform_weights rounded to
+    bf16: the same f32 sums, so equal up to the order of three adds (one
+    bf16 ulp where a sum lands on a rounding tie)."""
+    w = _rand(card, 77)(3, 3, 64, 96).to(dtype)
+    got = wg.weights_kernel(w)
+    want = wg.transform_weights(w).to(torch.bfloat16).reshape(16, 64, 96)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-6)
     torch.cuda.synchronize()
 
 
@@ -469,3 +489,54 @@ def test_probe_kernels_refuse_what_they_cannot_take(card):
     with pytest.raises(ValueError):
         p4.cmajor_conv(torch.zeros(1, 16, 8, 8, device=card, dtype=torch.bfloat16),
                        torch.zeros(32, 288, device=card))
+
+
+def _small_x2(card, **selectors):
+    """A small x2 dDDPM at 256^2 (latent 128^2 x 8, UNet 32 wide with
+    attention sites of 16384 and 4096 tokens; decoder blocks cio 64 /
+    cm 32, which the fused ConvResBlock takes), bf16, on the card."""
+    cfg = dict(model="dddpm", dataset="synthetic", image_size=256, T=50,
+               loss_type="simple", beta_schedule="linear", loss_flat="sum",
+               unet_chan=32, unet_dims=(1, 2), unet_dropout=0.0, unet_in=8,
+               n_downsamples=1, d_mode="convolutional_res",
+               u_mode="convolutional_res", d_dropout=0, d_chans=64,
+               d_n_blocks=2, u_n_blocks=2, ae_loss=True, t_rec_max=5,
+               force_latent=True, compute_dtype="bfloat16", **selectors)
+    net, _, init_fn, cfg = build_model(cfg, device=card)
+    init_fn(0)
+    return net, cfg
+
+
+@pytest.mark.parametrize("value,kernels", [("auto", True), (True, True),
+                                           (False, False)])
+def test_attention_selector_on_card(card, value, kernels):
+    """use_pallas_attention: 'auto' pins True on the card; False runs
+    a UNet forward with no K1a/K1b (or K1c) launch."""
+    net, cfg = _small_x2(card, use_pallas_attention=value)
+    assert cfg["use_pallas_attention"] is kernels
+    gen = torch.Generator(device=card).manual_seed(3)
+    z = torch.randn(2, 8, 128, 128, generator=gen, device=card)
+    before = dict(ab.LAUNCHES)
+    with torch.no_grad():
+        out = net.unet(z, torch.tensor([3, 40], device=card))
+    torch.cuda.synchronize()
+    launched = {k: ab.LAUNCHES[k] - before[k] for k in before}
+    if kernels:
+        assert launched["attn_ctx"] > 0 and launched["attn_out"] > 0, launched
+    else:
+        assert not any(launched.values()), launched
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("value", [True, False])
+def test_resample_selector_on_card(card, value):
+    """use_pallas_resample False: a decode launches no K2."""
+    net, _ = _small_x2(card, use_pallas_resample=value)
+    gen = torch.Generator(device=card).manual_seed(4)
+    z = torch.randn(1, 8, 128, 128, generator=gen, device=card)
+    before = cr.LAUNCHES["convres_fwd"]
+    with torch.no_grad():
+        x = net.upsample(z)
+    torch.cuda.synchronize()
+    assert (cr.LAUNCHES["convres_fwd"] > before) is value
+    assert x.shape == (1, 3, 256, 256) and torch.isfinite(x).all()

@@ -307,8 +307,8 @@ def test_config_matches_jax_without_tpu_flags():
             "-downsample", "3", "--T", "50", "--compute-dtype", "float32"]
     got, mute = tconfig.get_args(argv=argv)
     want, _ = jconfig.get_args(argv=argv)
-    tpu_only = {"mesh_shape", "use_pallas_attention", "use_pallas_resample",
-                "remat", "fsdp"}
+    # the kernel selectors are mirrored; the rest are TPU-only
+    tpu_only = {"mesh_shape", "remat", "fsdp"}
     # the port reads its data from inside the working directory by default
     assert want.pop("data_root") == "../data/" and got["data_root"] == "./data/"
     assert {k: v for k, v in want.items() if k not in tpu_only} == {
@@ -353,3 +353,61 @@ def test_trainer_trains_checkpoints_and_resumes(tmp_path):
     resumed.log_images()
     names = os.listdir(os.path.join(str(tmp_path), "logging"))
     assert sum(n.startswith("3_") and n.endswith(".png") for n in names) == 4
+
+
+# ------------------------------------------------------------ dropout keys
+
+
+def _dropout_state(seed):
+    """A fresh net (weights from init seed 0) and train state under run
+    seed `seed`, with the default generator reseeded as Trainer.__init__
+    reseeds it, and the UNet's dropout active."""
+    torch.manual_seed(seed)
+    cfg = dict(CONFIG, unet_dropout=0.5, batch_size=4)
+    net, proc, init_fn, _ = build_model(cfg, device="cpu")
+    init_fn(0)
+    net.train()
+    state = create_train_state(net, create_optimizer(net, cfg["lr"]), seed)
+    return state, make_train_step(proc, grad_accum=2), cfg
+
+
+def _dropout_batches(n):
+    rng = np.random.default_rng(11)
+    return torch.from_numpy(np.tanh(rng.standard_normal(
+        (n, 2, 4, 16, 16, 3))).astype(np.float32))
+
+
+def test_resumed_step_draws_the_unbroken_runs_dropout(tmp_path):
+    """Step 3 after a resume from a step-2 checkpoint equals step 3 of
+    the unbroken run, params and loss exactly, with dropout 0.5: each
+    step seeds its masks from (seed, step), not from where the default
+    generator stands."""
+    batches = _dropout_batches(3)
+    state, step_fn, cfg = _dropout_state(7)
+    for i in range(2):
+        step_fn(state, batches[i])
+    checkpoint.save_checkpoint(str(tmp_path), state, cfg)
+    want = float(step_fn(state, batches[2])["train_obj"])
+
+    resumed, step_r, _ = _dropout_state(7)
+    checkpoint.restore_checkpoint(str(tmp_path), resumed)
+    assert resumed.step == 2
+    got = float(step_r(resumed, batches[2])["train_obj"])
+    assert got == want
+    for k, p in resumed.params.items():
+        assert torch.equal(p, state.params[k]), k
+
+
+def test_dropout_masks_follow_the_run_seed():
+    """The same step with t and eps given (so only dropout draws) gives
+    the same loss under one seed and another loss under another."""
+    batch = _dropout_batches(1)[0]
+    rng = np.random.default_rng(12)
+    t = torch.from_numpy(rng.integers(0, CONFIG["T"], (2, 4)))
+    eps = torch.from_numpy(rng.standard_normal((2, 4, 8, 8, 8)).astype(np.float32))
+    loss = {}
+    for run, seed in (("a", 7), ("b", 7), ("c", 8)):
+        state, step_fn, _ = _dropout_state(seed)
+        loss[run] = float(step_fn(state, batch, t=t, eps=eps)["train_obj"])
+    assert loss["a"] == loss["b"]
+    assert loss["a"] != loss["c"]
