@@ -26,12 +26,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    each micro-batch draws, checks the loss, the update and a checkpoint
    round trip, times and profiles further steps, and runs one f32 train
    step (B = 2) on the card against the plain path on the CPU;
-6. the x2 UNet's ResnetBlock seam (K5): the seam with conv2 through the
-   fused conv (GroupNorm folded into its prologue) against the unfused
-   seam, and the kernel against its plain version, at the three seam
-   shapes with the x2 model's own ResnetBlock weights, bf16 and f32;
-   K5 at the identity prologue timed against F.conv2d; then the seams
-   run once more with the counters zeroed;
+6. the x2 UNet's ResnetBlock seam (K5): its ptxas line (no spill
+   allowed); the seam with conv2 through the fused conv (GroupNorm
+   folded into its prologue) against the unfused seam, and the kernel
+   against its plain version with the seam's gn-fold + post_bias
+   prologue and with the identity prologue, at the three seam shapes
+   with the x2 model's own ResnetBlock weights, bf16 and f32; in bf16
+   K5 timed with the seam's prologue (the kernels line's `ms`, eager)
+   and the identity one (`identity_ms`), and from CUDA graphs
+   (`graph_ms`), against F.conv2d eager and from CUDA graphs (TFLOP/s
+   and share of the bound per seam); then the seams run once more with
+   the counters zeroed;
 7. the x2 3x3 convs through the Winograd kernel (K6), the same shapes
    and weights, with and without mish, against its plain version (its
    bf16 roundings of V and U), timed against F.conv2d (TFLOP/s, share of
@@ -749,7 +754,10 @@ def _seam_inputs(net, dtype, gen):
 
 
 def phase_seam(results, net):
-    """K5 at the x2 ResnetBlock seams."""
+    """K5 at the x2 ResnetBlock seams: checked in bf16 and f32, timed in
+    bf16 with the gn-fold + post_bias prologue (the seam's) and the
+    identity prologue, eager and from CUDA graphs, beside cuDNN."""
+    ptxas_check("conv3x3")
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(21)
         log(f"x2 ResnetBlock seam (K5), B={B}, {dtype}:")
@@ -764,25 +772,45 @@ def phase_seam(results, net):
                 err = check_close(f"conv3x3 gn-fold prologue {hw}^2 c{c}",
                                   c3.conv3x3_fused(c1, w2, b2, **kw),
                                   c3.plain(c1, w2, b2, **kw), dtype)
-                check_close(f"conv3x3 identity {hw}^2 c{c}",
-                            c3.conv3x3_fused(c1, w2, b2), c3.plain(c1, w2, b2),
-                            dtype)
-                ms = cuda_ms(lambda: c3.conv3x3_fused(c1, w2, b2, **kw), 10)
-                plain_ms = cuda_ms(lambda: c3.plain(c1, w2, b2, **kw), 10)
-                ms_id = cuda_ms(lambda: c3.conv3x3_fused(c1, w2, b2), 10)
-                lib_ms = cuda_ms(cudnn_conv(c1, w2, b2), 10)
+                err = max(err, check_close(
+                    f"conv3x3 identity {hw}^2 c{c}",
+                    c3.conv3x3_fused(c1, w2, b2), c3.plain(c1, w2, b2), dtype))
+                if dtype != torch.bfloat16:   # f32 is checked, not timed
+                    continue
+                conv = lambda: c3.conv3x3_fused(c1, w2, b2, **kw)
+                conv_id = lambda: c3.conv3x3_fused(c1, w2, b2)
+                lib = cudnn_conv(c1, w2, b2)
+                ms, ms_id = cuda_ms(conv, 20), cuda_ms(conv_id, 20)
+                lib_ms = cuda_ms(lib, 20)
+                g_ms, g_lib_ms = graph_ms(conv, 20), graph_ms(lib, 20)
+                plain_ms = cuda_ms(lambda: c3.plain(c1, w2, b2, **kw), 5)
                 seam_ms = cuda_ms(lambda: c3.seam_fused(x, p), 5)
                 seam_plain_ms = cuda_ms(lambda: c3.seam_plain(x, p), 5)
             cost = c3.cost(B, hw, hw, c, c, x.element_size(), prologue_arrays=3)
             bnd, by = bound_ms(cost, dtype)
+            tf = lambda t: cost["flops"] / t / 1e9
             log(f"    conv3x3 {hw}^2 c{c} {dtype}: kernel {ms * 1e3:.1f} us "
-                f"(identity prologue {ms_id * 1e3:.1f} us), plain "
+                f"({tf(ms):.1f} TFLOP/s, {bnd / ms:.3f} of the bound, "
+                f"{ms / lib_ms:.2f}x cuDNN), identity prologue "
+                f"{ms_id * 1e3:.1f} us ({tf(ms_id):.1f} TFLOP/s), plain "
                 f"{plain_ms * 1e3:.1f} us, cuDNN F.conv2d {lib_ms * 1e3:.1f} us, "
-                f"bound {bnd * 1e3:.1f} us ({by}); whole seam fused "
+                f"bound {bnd * 1e3:.1f} us ({by}); from a CUDA graph: kernel "
+                f"{g_ms * 1e3:.1f} us ({tf(g_ms):.1f} TFLOP/s, "
+                f"{bnd / g_ms:.3f} of the bound), cuDNN {g_lib_ms * 1e3:.1f} us "
+                f"({g_ms / g_lib_ms:.2f}x); whole seam fused "
                 f"{seam_ms * 1e3:.1f} us, unfused {seam_plain_ms * 1e3:.1f} us")
-            if dtype == torch.bfloat16:
-                accumulate(results, "conv3x3", "x2_seam", 1, ms, plain_ms, bnd,
-                           cost, err, lib_ms)
+            accumulate(results, "conv3x3", "x2_seam", 1, ms, plain_ms, bnd,
+                       cost, err, lib_ms, identity_ms=ms_id, graph_ms=g_ms,
+                       library_graph_ms=g_lib_ms)
+    r = results[("conv3x3", "x2_seam")]
+    for what, k, lib in (("eager", "ms", "library_ms"),
+                         ("eager, identity prologue", "identity_ms",
+                          "library_ms"),
+                         ("from CUDA graphs", "graph_ms", "library_graph_ms")):
+        log(f"  three seams' conv2, bf16, {what}: kernel {r[k] * 1e3:.1f} us, "
+            f"cuDNN {r[lib] * 1e3:.1f} us ({r[k] / r[lib]:.2f}x), bound "
+            f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_ms'] / r[k]:.3f} of it) "
+            f"[{card_line()}]")
     # the path: the three seams, counted on their own
     gen = torch.Generator(device="cuda").manual_seed(21)
     seams = list(_seam_inputs(net, torch.bfloat16, gen))
@@ -811,14 +839,14 @@ def graph_ms(fn, iters: int) -> float:
     return cuda_ms(graph.replay, iters)
 
 
-def winograd_ptxas():
-    """Prints K6's ptxas line per compiled kernel (registers, spill
-    bytes) from the log its build kept; fails on a spill or when the log
-    holds no conv kernel."""
-    report = _build.ptxas_report("winograd")
-    assert any("winograd_kernel" in k["kernel"] for k in report), report
+def ptxas_check(name: str):
+    """Prints the ptxas line of each kernel of csrc/<name>.cu (registers,
+    spill bytes) from the log its build kept; fails on a spill or when
+    the log holds no `<name>_kernel`, the conv."""
+    report = _build.ptxas_report(name)
+    assert any(f"{name}_kernel" in k["kernel"] for k in report), report
     for k in report:
-        log(f"  ptxas winograd: {k['kernel']}: {k['registers']} registers, "
+        log(f"  ptxas {name}: {k['kernel']}: {k['registers']} registers, "
             f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} "
             f"bytes spill loads")
         assert k["spill_stores"] == k["spill_loads"] == 0, k
@@ -826,7 +854,7 @@ def winograd_ptxas():
 
 def phase_winograd(results, net):
     """K6 at the x2 3x3 convs: the seams' shapes and conv1 weights."""
-    winograd_ptxas()
+    ptxas_check("winograd")
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(22)
         log(f"x2 3x3 convs through Winograd (K6), B={B}, {dtype}:")
@@ -1080,7 +1108,8 @@ def main() -> int:
                      >= r["flops"] / PEAK_FLOPS[torch.bfloat16]
                      else "operations"),
         "library_ms": r["library_ms"],
-        **{k: r[k] for k in ("graph_ms", "library_graph_ms") if k in r},
+        **{k: r[k] for k in ("identity_ms", "graph_ms", "library_graph_ms")
+           if k in r},
     } for (name, path), r in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

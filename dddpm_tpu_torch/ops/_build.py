@@ -8,10 +8,10 @@ Each source under dddpm_tpu_torch/csrc/ is compiled on first use with
 (plus a -D flag per define asked for) into dddpm_tpu_torch/_build/
 (listed in .gitignore) as a shared library with a plain C interface,
 then loaded with ctypes.  The library's file name carries a hash of its
-source and defines, so an edited source is rebuilt and an unchanged one
-is reused; nvcc's ptxas report is kept beside it (`build_log`).
-`build_all` starts one nvcc per source at once.  Nothing is compiled
-when the package is imported.
+source, the headers of csrc/ and its defines, so an edited source or
+header is rebuilt and an unchanged one is reused; nvcc's ptxas report
+is kept beside it (`build_log`).  `build_all` starts one nvcc per
+source at once.  Nothing is compiled when the package is imported.
 """
 from __future__ import annotations
 
@@ -42,8 +42,12 @@ def _nvcc() -> str:
 
 def _target(name: str, defines: Tuple[str, ...] = ()) -> Path:
     """The library of csrc/<name>.cu built with `defines`; its nvcc log
-    is the same path with the suffix .log."""
+    is the same path with the suffix .log.  The name hashes the source,
+    every header of csrc/ (a source may include any of them) and the
+    defines."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
     for d in defines:
         digest.update(b"\0-D" + d.encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"

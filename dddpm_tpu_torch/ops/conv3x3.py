@@ -29,8 +29,8 @@ from dddpm_tpu_torch.ops.math import mish
 
 GROUPS = 8
 GN_EPS = 1e-5
-CIN_STEP = 32     # CK in csrc/conv3x3.cu: input channels per stage
-COUT_STEP = 64    # CO in csrc/conv3x3.cu: output channels per block
+CIN_STEP = 32     # the C entry of csrc/conv3x3.cu takes Cin % 32 == 0
+COUT_STEP = 64    # and Cout % 64 == 0 (its blocks of 128 mask the rest)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the C entry; chip_smoke.py reads it
@@ -62,8 +62,12 @@ def plain(x, w, b, *, apply_mish=False, scale=None, shift=None,
     prologue), + b, rounded to x's dtype.  NHWC in and out."""
     a = prologue(x, apply_mish=apply_mish, scale=scale, shift=shift,
                  post_bias=post_bias)
-    y = F.conv2d(a.permute(0, 3, 1, 2).float(), w.permute(3, 2, 0, 1).float(),
-                 padding=1)
+    # on the CPU not through oneDNN, whose f32 conv, in a process that also
+    # runs JAX, now and then lands ~1e-4 off (an f32 conv's sums differ by
+    # ~1e-6); on a card this flag does nothing
+    with torch.backends.mkldnn.flags(enabled=False, allow_tf32=None):
+        y = F.conv2d(a.permute(0, 3, 1, 2).float(),
+                     w.permute(3, 2, 0, 1).float(), padding=1)
     return (y.permute(0, 2, 3, 1) + b.float()).to(x.dtype).contiguous()
 
 
@@ -74,6 +78,12 @@ def _lib():
         lib.conv3x3_fused.argtypes = [vp] * 7 + [i] * 7 + [vp]
         lib.conv3x3_fused.restype = i
     return lib
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data is not 16-byte aligned (the
+    kernel loads 16 bytes at a time; a view with an offset may not be)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _kernel(x, w, b, apply_mish, scale, shift, post_bias):
@@ -100,10 +110,11 @@ def _kernel(x, w, b, apply_mish, scale, shift, post_bias):
             if t.numel() != bsz * cin or t.device != x.device:
                 raise ValueError(f"scale, shift, post_bias must hold ({bsz}, "
                                  f"{cin}) values on {x.device}")
-        extra = [t.float().reshape(bsz, cin).contiguous() for t in extra]
+        extra = [_aligned(t.float().reshape(bsz, cin).contiguous())
+                 for t in extra]
         mode = len(extra)
     extra += [None] * (3 - len(extra))
-    wk = w.to(x.dtype).contiguous()
+    x, wk = _aligned(x), _aligned(w.to(x.dtype).contiguous())
     bias = b.float().contiguous()
     y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
     lib = _lib()

@@ -58,3 +58,30 @@ def test_a_library_without_its_log_is_rebuilt(build_dir, monkeypatch):
         _build._finish("winograd", _build._start("winograd"))
     target.with_suffix(".log").write_text(LOG)
     assert _build._start("winograd") is None
+
+
+def test_a_header_edit_names_another_library(build_dir, tmp_path, monkeypatch):
+    """A library's name hashes the headers of csrc/ too, so an edited
+    header is rebuilt, not served stale from the cache."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in ("conv3x3.cu", "mma_sm90.cuh"):
+        (csrc / f).write_bytes((_build.CSRC / f).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    header = csrc / "mma_sm90.cuh"
+    text, first = header.read_bytes(), _build._target("conv3x3")
+    header.write_bytes(text + b"// edited\n")
+    assert _build._target("conv3x3") != first
+    header.write_bytes(text)
+    assert _build._target("conv3x3") == first
+
+
+@pytest.mark.parametrize("name", ["conv3x3", "winograd"])
+def test_tensor_core_kernels_share_one_copy_of_the_fragment_helpers(name):
+    """K5 and K6 include csrc/mma_sm90.cuh and define none of its helpers
+    themselves, so the two cannot drift apart."""
+    source = (_build.CSRC / f"{name}.cu").read_text()
+    assert '#include "mma_sm90.cuh"' in source
+    for helper in ("cp_async16(", "ldmatrix_x4(", "ldmatrix_x4_trans(",
+                   "mma_bf16("):
+        assert f"void {helper}" not in source, helper

@@ -208,28 +208,64 @@ def _rand(card, seed):
     return lambda *s: torch.randn(*s, generator=gen, device=card)
 
 
+def _conv3x3_args(r, bsz, cin, mode, dtype):
+    if mode == "mish":
+        return {"apply_mish": True}
+    if not mode.startswith("gn_fold"):
+        return {}
+    args = {"scale": 1.0 + 0.1 * r(bsz, cin), "shift": 0.5 + 0.2 * r(bsz, cin)}
+    if mode == "gn_fold_post_bias":
+        args["post_bias"] = (0.2 * r(bsz, cin)).to(dtype)
+    return args
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["identity", "mish", "gn_fold", "gn_fold_post_bias"])
-@pytest.mark.parametrize("bsz,h,w,cin,cout", [(2, 16, 16, 128, 128),
-                                              (1, 13, 20, 128, 256),
-                                              (2, 32, 40, 256, 128)])
+@pytest.mark.parametrize("bsz,h,w,cin,cout", [
+    (2, 16, 16, 128, 128), (1, 13, 20, 128, 256), (2, 32, 40, 256, 128),
+    # the three x2 ResnetBlock seams at B = 2
+    (2, 128, 128, 128, 128), (2, 64, 64, 256, 256), (2, 32, 32, 256, 256),
+    (1, 16, 16, 64, 64),      # Cout 64: half of a 128-wide block masked
+    (1, 16, 16, 32, 128),     # Cin 32: two stages of 16
+    (1, 20, 36, 64, 192),     # partial bands both ways, Cout 192
+    (2, 9, 12, 32, 64),       # W < 16: one partial band a row
+    # bf16 takes the 16 x 16 band where it gives a block per SM (132 on
+    # an H100 SXM), the 8 x 16 band below that (every case above)
+    (3, 128, 128, 128, 128),  # 16 x 16 bands, 192 blocks
+    (4, 100, 84, 64, 192)])   # 16 x 16 bands, partial both ways, Cout 192
 def test_conv3x3_kernel_matches_plain(card, dtype, mode, bsz, h, w, cin, cout):
-    """K5 in each prologue mode; 13 x 20 leaves partial 8 x 16 bands;
-    shift != 0, so a halo padded with prologue(0) would show."""
+    """K5 in each prologue mode; 13 x 20 and the others leave partial
+    bands; shift != 0, so a halo padded with prologue(0) would show."""
     r = _rand(card, h * w + cin + cout)
     x = r(bsz, h, w, cin).to(dtype)
     wt, b = (r(3, 3, cin, cout) / (9 * cin) ** 0.5).to(dtype), 0.1 * r(cout)
-    args = {}
-    if mode == "mish":
-        args = {"apply_mish": True}
-    elif mode.startswith("gn_fold"):
-        args = {"scale": 1.0 + 0.1 * r(bsz, cin), "shift": 0.5 + 0.2 * r(bsz, cin)}
-        if mode == "gn_fold_post_bias":
-            args["post_bias"] = (0.2 * r(bsz, cin)).to(dtype)
+    args = _conv3x3_args(r, bsz, cin, mode, dtype)
     before = c3.LAUNCHES["conv3x3"]
     got = c3.conv3x3_fused(x, wt, b, **args)
     assert c3.LAUNCHES["conv3x3"] == before + 1
     _close(got, c3.plain(x, wt, b, **args), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mode", ["identity", "gn_fold_post_bias"])
+def test_conv3x3_f32_keeps_f32_accuracy(card, mode):
+    """f32 K5 splits each operand into bf16 hi + lo and runs three mma a
+    product: within 1e-4 of max |y| at Cin 256 (f32 sums in another
+    order), where one bf16 pass over K = 2304 lands near 1e-3."""
+    r = _rand(card, 7)
+    bsz, h, w, cin, cout = 2, 32, 32, 256, 128
+    x = r(bsz, h, w, cin)
+    wt, b = r(3, 3, cin, cout) / (9 * cin) ** 0.5, 0.1 * r(cout)
+    args = _conv3x3_args(r, bsz, cin, mode, torch.float32)
+    got = c3.conv3x3_fused(x, wt, b, **args)
+    want = c3.plain(x, wt, b, **args)
+    tol = 1e-4 * float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= tol, (err, tol)
+    # the bound tells the two apart: one bf16 pass misses it
+    bf = lambda t: t.to(torch.bfloat16).float()
+    one_pass = c3.plain(bf(c3.prologue(x, **args)), bf(wt), b)
+    assert float((one_pass - want).abs().max()) > tol
     torch.cuda.synchronize()
 
 
