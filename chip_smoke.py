@@ -51,10 +51,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    and B and the fold), then the x2 chain (generate_samples, cut to
    CHAIN_1P_STEPS steps) with FORCE_ONE_PASS set and the counters
    zeroed, checked against the two-pass chain from the same seed;
-10. the probes P1-P4 (dddpm_tpu_torch/probes/), with the counters zeroed
-   just before and read just after: each probe's main() at the TPU
-   probe's default size holds every variant of its kernels against its
-   plain version on the card, then times it.
+10. the probes P1-P4 (dddpm_tpu_torch/probes/): the ptxas lines of P4's
+   conv and of P2's copies (no spill allowed), then, with the counters
+   zeroed just before and read just after, each probe's main() at the
+   TPU probe's default size holds every variant of its kernels against
+   its plain version on the card, then times it (P4 beside cuDNN on
+   NCHW, the entry's `library_ms`, and on channels_last,
+   `library_cl_ms`).
 
 The last three lines are a JSON object with the kernels' numbers (one
 entry per kernel and path, its launches counted on that path's own run),
@@ -211,7 +214,8 @@ PER = {("attn_ctx", "x2_sample"): f"x2 chain step at B={B}",
        ("probe_convres", "probes"):
            _PER_PROBE + "B=32, 256^2, cio 64, cm 32, bf16: base",
        ("probe_cmajor_conv", "probes"):
-           _PER_PROBE + "B=32, C=32, 256^2, bf16"}
+           _PER_PROBE + "B=32, C=32, 256^2, bf16; library_ms cuDNN on NCHW, "
+           "library_cl_ms on channels_last"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORKDIR = os.path.join(ROOT, "results", "chip_smoke")   # git-ignored
 
@@ -839,12 +843,13 @@ def graph_ms(fn, iters: int) -> float:
     return cuda_ms(graph.replay, iters)
 
 
-def ptxas_check(name: str):
+def ptxas_check(name: str, kernel: str = ""):
     """Prints the ptxas line of each kernel of csrc/<name>.cu (registers,
     spill bytes) from the log its build kept; fails on a spill or when
-    the log holds no `<name>_kernel`, the conv."""
+    the log holds no `kernel` (by default `<name>_kernel`)."""
     report = _build.ptxas_report(name)
-    assert any(f"{name}_kernel" in k["kernel"] for k in report), report
+    kernel = kernel or f"{name}_kernel"
+    assert any(kernel in k["kernel"] for k in report), (kernel, report)
     for k in report:
         log(f"  ptxas {name}: {k['kernel']}: {k['registers']} registers, "
             f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} "
@@ -1033,6 +1038,8 @@ def phase_probes(results):
     with the counters zeroed just before and read just after.  Each
     main() checks every variant against its plain version on the card
     before timing it, and raises on a mismatch."""
+    ptxas_check("probe_cmajor_conv", "cmajor_conv_kernel")
+    ptxas_check("probe_copy", "copy_async_kernel")
     heads = {}
     torch.cuda.synchronize()
     reset_counts()
@@ -1055,7 +1062,8 @@ def phase_probes(results):
             ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=bnd,
             max_abs_err=h["max_abs_err"], bytes=h["cost"]["bytes"],
             flops=h["cost"]["flops"], launches=launched[name],
-            library_ms=h["library_ms"])
+            library_ms=h["library_ms"],
+            **{k: h[k] for k in ("library_cl_ms",) if k in h})
 
 
 def main() -> int:
@@ -1108,8 +1116,8 @@ def main() -> int:
                      >= r["flops"] / PEAK_FLOPS[torch.bfloat16]
                      else "operations"),
         "library_ms": r["library_ms"],
-        **{k: r[k] for k in ("identity_ms", "graph_ms", "library_graph_ms")
-           if k in r},
+        **{k: r[k] for k in ("identity_ms", "graph_ms", "library_graph_ms",
+                             "library_cl_ms") if k in r},
     } for (name, path), r in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

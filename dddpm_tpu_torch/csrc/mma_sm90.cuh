@@ -1,7 +1,7 @@
 // Fragment helpers for the tensor-core kernels (sm_90a): cp.async,
 // ldmatrix and mma.sync.m16n8k16 with bf16 operands and f32 sums.
-// Included by winograd.cu (K6) and conv3x3.cu (K5), so that the two use
-// one copy of each.
+// Included by winograd.cu (K6), conv3x3.cu (K5) and probe_cmajor_conv.cu
+// (P4), so that they use one copy of each.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,6 +38,18 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* p) 
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+
+// stores four 8 x 8 b16 matrices transposed: register j holds matrix j
+// in ldmatrix_x4's fragment layout (thread t: row t / 4, columns
+// 2 (t % 4) and 2 (t % 4) + 1), and lane l gives the address of row l % 8
+// of its transpose in matrix l / 8; so ldmatrix_x4 then
+// stmatrix_x4_trans transposes 8 x 8 blocks of shared memory
+__device__ __forceinline__ void stmatrix_x4_trans(void* p, const unsigned r[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1,%2,%3,%4};\n"
+      ::"r"(smem_addr(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
 }
 
 // c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 sums

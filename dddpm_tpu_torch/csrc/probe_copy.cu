@@ -5,28 +5,35 @@
 //   _manual_kernel (:72, pallas_call :111) -> copy_async_kernel
 //
 // What it computes: y = x, byte for byte; y may be x (the probe's
-// "alias" variant, input_output_aliases {0: 0}).  Block k of the grid
-// copies the k-th run of tn tokens (tn * C elements, contiguous).
+// "alias" variant, input_output_aliases {0: 0}), in tiles of tn tokens
+// (tn * C elements, contiguous).
 //
 // What bounds it on an H100: bytes alone.  At the probe's default (B =
 // 96, 128^2 tokens, C = 128, bf16) a copy reads 402.7 MB and writes as
 // much: 0.240 ms at 3.35 TB/s.
 //
 // What this design does about it:
-//   copy_kernel: every thread moves 16-byte words, four loads in flight
-//   before their four stores, neighbouring threads on neighbouring
-//   words.  The grid is (N / tn, B), or flat (B * N / tn): the same
+//   copy_kernel: block k of the grid copies tile k.  Every thread moves
+//   16-byte words, four loads in flight before their four stores,
+//   neighbouring threads on neighbouring words.  The grid is (N / tn, B), or flat (B * N / tn): the same
 //   blocks in another numbering, as a Hopper grid has no order.  The
 //   TPU's dimension semantics ("parallel" / "arbitrary") have no
 //   counterpart: blocks always run in parallel and in no order.
-//   copy_async_kernel: one thread drives the copy engine (TMA).  It
-//   loads STAGE bytes at a time into one of two shared-memory stages
-//   with cp.async.bulk, completion counted on the stage's mbarrier, and
-//   writes each stage out with an asynchronous bulk store
-//   (cp.async.bulk ... bulk_group, commit_group).  Before a stage is
-//   loaded again it waits (wait_group.read) until the store that last
-//   read it has read it, so the next load overlaps the current store:
-//   the counterpart of the probe's hand double-buffered output.  Sizes
+//   copy_async_kernel: one thread a block drives the copy engine (TMA),
+//   on a persistent grid (as many one-warp blocks as fit on the SMs)
+//   that splits the bytes evenly: block k takes every gridDim.x-th chunk
+//   from chunk k on, a chunk being STAGE bytes of one tile or the tile's
+//   tail (tiles of tn tokens stay the unit the chunks are cut from), so
+//   that the grid reads and writes one window of memory at a time
+//   (split into one contiguous run a block it was slower on an H100
+//   80GB HBM3, 700 W).  It loads a chunk at a time into a ring of
+//   STAGES shared-memory stages with cp.async.bulk, completion on the
+//   stage's mbarrier, and writes each stage out with an asynchronous
+//   bulk store (cp.async.bulk ... bulk_group, commit_group): the
+//   counterpart of the probe's hand-buffered output.  A stage is loaded
+//   again once its store has read it (wait_group.read READING), so
+//   READING stores and STAGES - READING loads stay in flight.  Both
+//   carry an L2 evict-first hint: nothing reads the bytes again.  Sizes
 //   and addresses are multiples of 16 bytes, as bulk copies need.
 //
 // C interface: plain C entries, loaded with ctypes.  Each launches on
@@ -39,7 +46,12 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int UNROLL = 4;
-constexpr int STAGE = 32768;      // bytes of one stage of copy_async_kernel
+// copy_async_kernel: a ring of STAGES stages of STAGE bytes; a stage is
+// loaded again while the READING newest stores may still be reading
+// theirs, so STAGES - READING loads are in flight
+constexpr int STAGE = 16384;
+constexpr int STAGES = 6;
+constexpr int READING = 2;
 
 // Block k copies words [k * tile_words, (k + 1) * tile_words).
 __global__ void __launch_bounds__(THREADS)
@@ -73,56 +85,90 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   return done != 0;
 }
 
-// bytes from global src into shared dst, completion on mbarrier bar
+// bytes from global src into shared dst, completion on mbarrier bar,
+// with L2 cache policy pol
 __device__ __forceinline__ void bulk_load(uint32_t dst, const char* src,
-                                          uint32_t bytes, uint32_t bar) {
+                                          uint32_t bytes, uint32_t bar,
+                                          uint64_t pol) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(bar), "r"(bytes) : "memory");
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "l"(pol) : "memory");
 }
 
-// bytes from shared src to global dst, as one bulk group
-__device__ __forceinline__ void bulk_store(char* dst, uint32_t src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+// bytes from shared src to global dst, as one bulk group, with L2 cache
+// policy pol
+__device__ __forceinline__ void bulk_store(char* dst, uint32_t src, uint32_t bytes,
+                                           uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0], [%1], %2, %3;\n"
+      :: "l"(dst), "r"(src), "r"(bytes), "l"(pol) : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// Grid (N / tn, B) of one warp each; lane 0 copies the block's
-// tile_bytes through two shared stages.
+// Chunk g of the copy: its byte offset and size.  Chunks are STAGE bytes
+// of one tile, the tile's tail a part-chunk; per_tile chunks a tile.
+__device__ __forceinline__ void chunk_at(long long g, long long tile_bytes,
+                                         long long per_tile, long long& offset,
+                                         uint32_t& size) {
+  const long long part = g % per_tile;
+  offset = g / per_tile * tile_bytes + part * STAGE;
+  size = (uint32_t)min((long long)STAGE, tile_bytes - part * STAGE);
+}
+
+// A persistent grid of one warp a block (as many as fit on the SMs);
+// lane 0 of block k copies chunks k, k + gridDim.x, k + 2 gridDim.x, ...
+// The copy is cut into chunks of at most STAGE bytes that never straddle
+// two tiles of tile_bytes (the tail of a tile is a part-chunk), and the
+// blocks split the chunks, not the tiles, so every block moves the same
+// bytes to within one chunk, and the blocks together walk the copy from
+// its start to its end (a window of gridDim.x chunks at a time).
 __global__ void __launch_bounds__(32)
-copy_async_kernel(const char* x, char* y, long long tile_bytes) {
-  extern __shared__ __align__(128) char buf[];   // 2 x STAGE
-  __shared__ __align__(8) uint64_t bars[2];
+copy_async_kernel(const char* x, char* y, long long tile_bytes, long long ntiles) {
+  extern __shared__ __align__(128) char buf[];   // STAGES x STAGE
+  __shared__ __align__(8) uint64_t bars[STAGES];
   if (threadIdx.x != 0) return;
-  const long long k = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  const char* src = x + k * tile_bytes;
-  char* dst = y + k * tile_bytes;
-  const uint32_t bar[2] = {smem_addr(&bars[0]), smem_addr(&bars[1])};
-  const uint32_t stage[2] = {smem_addr(buf), smem_addr(buf + STAGE)};
-  for (int s = 0; s < 2; ++s)
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar[s]) : "memory");
+  const long long per_tile = (tile_bytes + STAGE - 1) / STAGE;
+  const long long total = per_tile * ntiles;
+  const long long n = (total - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  for (int s = 0; s < STAGES; ++s)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 :: "r"(smem_addr(&bars[s])) : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  uint64_t policy;   // streamed once: first out of L2, both ways
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
 
-  const long long nchunks = (tile_bytes + STAGE - 1) / STAGE;
-  auto size = [&](long long c) {
-    return (uint32_t)min((long long)STAGE, tile_bytes - c * STAGE);
+  // the block's chunk i is chunk blockIdx.x + i gridDim.x of the copy
+  auto load = [&](long long i) {
+    const int s = (int)(i % STAGES);
+    long long offset;
+    uint32_t size;
+    chunk_at(blockIdx.x + i * (long long)gridDim.x, tile_bytes, per_tile, offset, size);
+    bulk_load(smem_addr(buf + s * STAGE), x + offset, size, smem_addr(&bars[s]), policy);
   };
-  bulk_load(stage[0], src, size(0), bar[0]);
-  for (long long c = 0; c < nchunks; ++c) {
-    const int s = (int)(c & 1);
-    if (c + 1 < nchunks) {
-      // stage 1 - s was last read by the store of chunk c - 1
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      bulk_load(stage[1 - s], src + (c + 1) * STAGE, size(c + 1), bar[1 - s]);
+
+  for (long long i = 0; i < n && i < STAGES; ++i) load(i);
+  for (long long i = 0; i < n; ++i) {
+    const int s = (int)(i % STAGES);
+    while (!mbar_try_wait(smem_addr(&bars[s]), (uint32_t)((i / STAGES) & 1))) {
     }
-    while (!mbar_try_wait(bar[s], (uint32_t)((c >> 1) & 1))) {
+    long long offset;
+    uint32_t size;
+    chunk_at(blockIdx.x + i * (long long)gridDim.x, tile_bytes, per_tile, offset, size);
+    bulk_store(y + offset, smem_addr(buf + s * STAGE), size, policy);
+    // refill the stage of chunk i - READING with chunk i - READING +
+    // STAGES once that chunk's store has read it; the READING newest
+    // stores may still be reading theirs
+    const long long j = i - READING + STAGES;
+    if (j >= STAGES && j < n) {
+      asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(READING) : "memory");
+      load(j);
     }
-    bulk_store(dst + c * STAGE, stage[s], size(c));
   }
   // every store written before the block (and its shared memory) ends
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
@@ -154,12 +200,28 @@ int probe_copy(const void* x, void* y, int B, long long N, int C, int elem, int 
 int probe_copy_async(const void* x, void* y, int B, long long N, int C, int elem,
                      int tn, void* stream) {
   if (bad_tiles(B, N, C, elem, tn) || x == y) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      copy_async_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 2 * STAGE);
-  if (err != cudaSuccess) return (int)err;
-  copy_async_kernel<<<dim3((unsigned)(N / tn), B), 32, 2 * STAGE,
-                      (cudaStream_t)stream>>>((const char*)x, (char*)y,
-                                              (long long)tn * C * elem);
+  static int grid_cap = 0;   // blocks resident on the card at once
+  if (grid_cap == 0) {
+    int dev, sms, per_sm;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(copy_async_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 STAGES * STAGE);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, copy_async_kernel, 32, STAGES * STAGE);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    grid_cap = sms * per_sm;
+  }
+  const long long tile_bytes = (long long)tn * C * elem, ntiles = B * (N / tn);
+  const long long chunks = (tile_bytes + STAGE - 1) / STAGE * ntiles;
+  const int grid = (int)(chunks < grid_cap ? chunks : grid_cap);
+  copy_async_kernel<<<grid, 32, STAGES * STAGE, (cudaStream_t)stream>>>(
+      (const char*)x, (char*)y, tile_bytes, ntiles);
   return (int)cudaGetLastError();
 }
 

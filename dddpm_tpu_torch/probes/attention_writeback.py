@@ -6,9 +6,11 @@ identity copies of x (B, N, C) through csrc/probe_copy.cu.
                grid (N / tn, B), 16-byte loads and stores
   flat-8192    the same blocks on a 1-D grid (B * N / tn)
   alias-8192   in place: y is x (the probe's input_output_aliases)
-  manual-<tn>  copy_async_kernel: two shared-memory stages loaded and
-               stored by the copy engine (TMA bulk copies), the next
-               load overlapping the current store (8192, 4096, 2048)
+  manual-<tn>  copy_async_kernel: a ring of shared-memory stages loaded
+               and stored by the copy engine (TMA bulk copies), several
+               loads and stores in flight, on a persistent grid that
+               splits the bytes evenly; chunks are cut from tiles of tn
+               tokens (8192, 4096, 2048)
 The probe's par-8192 and arb-8192 set TPU dimension semantics, which
 have no Hopper counterpart (blocks always run in parallel, in no
 order); main() prints that line in their place.  Library rows: x + 1
@@ -86,7 +88,7 @@ def copy_kernel(x, tn: int, flat: bool = False, out=None):
 
 
 def copy_async_kernel(x, tn: int):
-    """probe_copy_async: y = x through double-buffered bulk copies."""
+    """probe_copy_async: y = x through a ring of bulk copies."""
     _check(x, tn)
     y = torch.empty_like(x)
     bsz, n, c = x.shape
@@ -151,7 +153,7 @@ def main(argv=None) -> dict:
         got = run()
         err = _util.check(name, got, keep, 0.0)
         ms = time(run)
-        print(_util.row(name, ms, cst, f"{bs * (n // tn)} blocks"))
+        print(_util.row(name, ms, cst, f"{bs * (n // tn)} tiles"))
         key = "probe_copy" if kind == "copy" else "probe_copy_async"
         if key not in heads:
             heads[key] = dict(ms=ms, plain_ms=lib_ms["x.clone() (plain version)"],

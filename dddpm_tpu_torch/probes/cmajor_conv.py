@@ -8,7 +8,9 @@ bf16.
 
     python -m dddpm_tpu_torch.probes.cmajor_conv [--bs 32] [--res 256]
 
-It needs a card.  The kernel is held against its plain version (TOL of
+It needs a card.  First main() shows, on its own inputs, that the check
+fails two tap-shift faults (wmat's kx taps mirrored, the band read one
+row off).  Then the kernel is held against its plain version (TOL of
 the larger of 1 and the output's largest magnitude: sums in another
 order, then one bf16 rounding) before it is timed; its error against an
 f32 conv with the unrounded weights, what the TPU probe printed, is
@@ -45,6 +47,38 @@ def plain(x, wmat):
     co, ci = wmat.shape[0], x.shape[1]
     w = wmat.to(x.dtype).float().reshape(co, 3, 3, ci).permute(0, 3, 1, 2)
     return F.conv2d(x.float(), w, padding=1).to(x.dtype)
+
+
+def inputs(bsz: int, res: int, gen: torch.Generator):
+    """main()'s inputs on gen's device: x (bsz, 32, res, res) bf16, the HWIO
+    weights w (f32, N(0, 1 / (9 * 32))) and wmat = to_wmat(w) in bf16."""
+    c, dev = CHANNELS, gen.device
+    x = torch.randn((bsz, c, res, res), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((3, 3, c, c), generator=gen, device=dev) / (9 * c) ** 0.5
+    return x, w, to_wmat(w).to(torch.bfloat16).contiguous()
+
+
+def mirrored_kx(wmat):
+    """wmat with its kx taps mirrored (kx 0 <-> 2): a conv whose band is
+    shifted the wrong way in x."""
+    co, k = wmat.shape
+    return wmat.reshape(co, 3, 3, k // 9).flip(2).reshape(co, k)
+
+
+def rows_off(x):
+    """x moved up one row, zero below: a conv of it reads the band one row
+    off."""
+    return F.pad(x[:, :, 1:], (0, 0, 0, 1))
+
+
+def check_sees_faults(x, wmat) -> tuple:
+    """Raises unless, on these inputs, the check at TOL fails the plain
+    conv with wmat's kx taps mirrored and the one that reads the band one
+    row off; returns their two errors."""
+    want = plain(x, wmat)
+    tol = _util.scaled_tol(want, TOL)
+    return (_util.check_fails("kx taps mirrored", plain(x, mirrored_kx(wmat)), want, tol),
+            _util.check_fails("band one row off", plain(rows_off(x), wmat), want, tol))
 
 
 def kernel(x, wmat):
@@ -92,7 +126,8 @@ def cost(bsz: int, h: int, w: int, c: int = CHANNELS, itemsize: int = 2) -> dict
 def main(argv=None) -> dict:
     """Checks, then times, the kernel and the two cuDNN rows; returns the
     kernel's numbers (ms, plain_ms, library_ms = cuDNN on NCHW,
-    max_abs_err, cost) under its name."""
+    library_cl_ms = cuDNN on channels_last, max_abs_err, cost) under its
+    name."""
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--bs", type=int, default=32)
     p.add_argument("--res", type=int, default=256)
@@ -100,15 +135,15 @@ def main(argv=None) -> dict:
     _util.require_card()
     torch.backends.cudnn.allow_tf32 = False
     bs, res, c = args.bs, args.res, CHANNELS
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((bs, c, res, res), generator=gen, device="cuda").to(torch.bfloat16)
-    w = torch.randn((3, 3, c, c), generator=gen, device="cuda") / (9 * c) ** 0.5
-    wmat = to_wmat(w).to(torch.bfloat16).contiguous()
+    x, w, wmat = inputs(bs, res, torch.Generator(device="cuda").manual_seed(0))
     cst = cost(bs, res, res)
     bnd, by = _util.bound_ms(cst)
     print(f"P4 channel-major 3x3 conv: B={bs} C={c} {res}x{res} bf16, bound "
           f"{bnd:.4f} ms ({by}) [{_util.card_line()}]")
     with torch.no_grad():
+        errs = check_sees_faults(x, wmat)
+        print(f"  the check fails kx taps mirrored (max abs err {errs[0]:.3e}) and "
+              f"the band one row off ({errs[1]:.3e})")
         want = plain(x, wmat)
         got = kernel(x, wmat)
         err = _util.check("cmajor conv", got, want, _util.scaled_tol(want, TOL))
@@ -130,7 +165,7 @@ def main(argv=None) -> dict:
                     ("cuDNN F.conv2d bf16 channels_last", cl_ms)):
         print(_util.row(name, t, cst))
     return {"probe_cmajor_conv": dict(ms=ms, plain_ms=plain_ms, library_ms=nchw_ms,
-                                      max_abs_err=err, cost=cst)}
+                                      library_cl_ms=cl_ms, max_abs_err=err, cost=cst)}
 
 
 if __name__ == "__main__":

@@ -76,12 +76,12 @@ def test_a_header_edit_names_another_library(build_dir, tmp_path, monkeypatch):
     assert _build._target("conv3x3") == first
 
 
-@pytest.mark.parametrize("name", ["conv3x3", "winograd"])
+@pytest.mark.parametrize("name", ["conv3x3", "winograd", "probe_cmajor_conv"])
 def test_tensor_core_kernels_share_one_copy_of_the_fragment_helpers(name):
-    """K5 and K6 include csrc/mma_sm90.cuh and define none of its helpers
-    themselves, so the two cannot drift apart."""
+    """K5, K6 and P4 include csrc/mma_sm90.cuh and define none of its
+    helpers themselves, so they cannot drift apart."""
     source = (_build.CSRC / f"{name}.cu").read_text()
     assert '#include "mma_sm90.cuh"' in source
     for helper in ("cp_async16(", "ldmatrix_x4(", "ldmatrix_x4_trans(",
-                   "mma_bf16("):
+                   "stmatrix_x4_trans(", "mma_bf16("):
         assert f"void {helper}" not in source, helper

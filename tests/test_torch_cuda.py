@@ -7,10 +7,13 @@ on the card run them with
 (--noconftest: tests/conftest.py sets up JAX, which the card's machine
 need not have.)
 """
+import re
+
 import pytest
 import torch
 
 from dddpm_tpu_torch.models.factory import build_model
+from dddpm_tpu_torch.ops import _build
 from dddpm_tpu_torch.ops import attention_block as ab
 from dddpm_tpu_torch.ops import conv3x3 as c3
 from dddpm_tpu_torch.ops import convres as cr
@@ -500,12 +503,50 @@ def test_probe_convres_nomask_is_wrong_only_at_the_border_rows(card):
     assert float(diff[2:-2].max()) == 0.0 and float(diff[[0, -1]].min()) > tol
 
 
-@pytest.mark.parametrize("bsz,h,w", [(2, 20, 70), (1, 64, 64)])
+# (2, 20, 70), (1, 3, 9): rows not 16-byte aligned (W % 8 != 0), the second
+# narrower than one tile; (2, 13, 64): H not a multiple of the band
+# height; (1, 256, 256): the aligned, fast staging; (3, 256, 256): the
+# probe's size at a small B
+@pytest.mark.parametrize("bsz,h,w", [(2, 20, 70), (1, 64, 64), (1, 3, 9), (2, 13, 64),
+                                     (1, 256, 256), (3, 256, 256)])
 def test_probe_cmajor_conv_matches_plain(card, bsz, h, w):
     r = _rand(card, h * w + 70)
     x = r(bsz, 32, h, w).to(torch.bfloat16)
     wmat = p4.to_wmat(r(3, 3, 32, 32) / 17.0).to(torch.bfloat16)
     _err_ok("cmajor conv", p4.cmajor_conv(x, wmat), p4.plain(x, wmat), p4.TOL)
+
+
+def test_probe_cmajor_conv_takes_a_misaligned_x(card):
+    """x a view 2 bytes into its storage: rows not 16-byte aligned at W =
+    64, which the kernel stages by 2-byte loads."""
+    r = _rand(card, 71)
+    x = r(2 * 32 * 16 * 64 + 1).to(torch.bfloat16)[1:].view(2, 32, 16, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    wmat = p4.to_wmat(r(3, 3, 32, 32) / 17.0).to(torch.bfloat16)
+    _err_ok("cmajor conv", p4.cmajor_conv(x, wmat), p4.plain(x, wmat), p4.TOL)
+
+
+def _ring():
+    """copy_async_kernel's STAGE (bytes) and STAGES, read from its source."""
+    src = (_build.CSRC / "probe_copy.cu").read_text()
+    get = lambda k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+    return get("STAGE"), get("STAGES")
+
+
+@pytest.mark.parametrize("case", ["ring_and_a_part", "under_a_stage", "tiles_per_block"])
+def test_probe_copy_async_ring_is_exact(card, case):
+    """P2b's ring: a tile of STAGES + 1/2 chunks (the ring wraps, a
+    part-chunk last); a tile smaller than one stage; B = 1 and 2000
+    tiles, several to a block of the persistent grid."""
+    stage, stages = _ring()
+    c = 64                                   # 128 bytes a bf16 token
+    tn, n = {"ring_and_a_part": ((2 * stages + 1) * stage // 256, None),
+             "under_a_stage": (8, None),
+             "tiles_per_block": (16, 16 * 2000)}[case]
+    x = _rand(card, 52)(1 if n else 2, n or 3 * tn, c).to(torch.bfloat16)
+    y = p2.copy_async_kernel(x, tn)
+    torch.cuda.synchronize()
+    assert torch.equal(y, x)
 
 
 def test_probe_kernels_refuse_what_they_cannot_take(card):

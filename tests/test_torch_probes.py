@@ -288,6 +288,19 @@ def test_p4_matches_jax_probe(dtype):
     _assert_close(got, want, 1e-5 if dtype == jnp.float32 else 1e-2)
 
 
+def test_p4_checks_see_the_tap_shift_faults_at_main_inputs():
+    """main()'s inputs, at a small size: the plain conv with wmat's kx taps
+    mirrored, and the one that reads the band one row off, are each
+    further than TOL from the plain conv, so main()'s check fails them."""
+    x, _, wmat = p4.inputs(1, 32, torch.Generator().manual_seed(0))
+    assert torch.equal(p4.mirrored_kx(p4.mirrored_kx(wmat)), wmat)
+    want = p4.plain(x, wmat)
+    tol = _util.scaled_tol(want, p4.TOL)
+    for wrong in (p4.plain(x, p4.mirrored_kx(wmat)), p4.plain(p4.rows_off(x), wmat)):
+        assert float((wrong.float() - want.float()).abs().max()) > tol
+    p4.check_sees_faults(x, wmat)
+
+
 def test_probe_costs_give_the_bounds_at_the_default_sizes():
     mb = lambda c: c["bytes"] / 1e6
     a = p1.cost(96, 128 * 128, 128)
