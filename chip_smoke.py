@@ -10,8 +10,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3. holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 and in f32 (TF32 off), and times both
    with CUDA events: the attention block and the ConvResBlock forward at
-   the x2 sampling shapes (B = 8), the attention block and the
-   ConvResBlock backward and forward at the x3 training shapes;
+   the x2 sampling shapes (B = 8; K2's ptxas line first, no spill
+   allowed), the attention block and the ConvResBlock backward and
+   forward at the x3 training shapes; K2's time logged per shape, eager
+   (the kernels line's `ms`) and replayed from a CUDA graph (`graph_ms`:
+   its kernels without the host's gaps between launches);
 4. drives the x2 dDDPM sampling path through the port's entry points
    (build_model -> init_fn -> generate_samples, a chain cut to
    CHAIN_STEPS steps, then p_sample_chain over ts = [2, 1, 0]) with the
@@ -52,7 +55,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    CHAIN_1P_STEPS steps) with FORCE_ONE_PASS set and the counters
    zeroed, checked against the two-pass chain from the same seed;
 10. the probes P1-P4 (dddpm_tpu_torch/probes/): the ptxas lines of P4's
-   conv and of P2's copies (no spill allowed), then, with the counters
+   conv and of P2's two copies (no spill allowed), then, with the counters
    zeroed just before and read just after, each probe's main() at the
    TPU probe's default size holds every variant of its kernels against
    its plain version on the card, then times it (P4 beside cuDNN on
@@ -333,6 +336,10 @@ def convres_inputs(h, w, dtype, gen, bsz=B):
 
 
 def phase_convres(results):
+    """K2 against reference_impl at the x2 decode shapes and 256^2
+    'down' (B = 8), bf16 and f32, timed against it; its ptxas line (no
+    spill allowed)."""
+    ptxas_check("convres_fwd", "convres_fwd_kernel")
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.bfloat16, torch.float32):
         log(f"ConvResBlock, {dtype}:")
@@ -342,19 +349,21 @@ def phase_convres(results):
                 y = cr.fused_convres_block(*args, residual=True, scale=scale)
                 want = cr.reference_impl(*args, residual=True, scale=scale)
                 err = check_close(f"convres {h}x{w} scale={scale}", y, want, dtype)
-                ms = cuda_ms(lambda: cr.fused_convres_block(
-                    *args, residual=True, scale=scale), 5)
+                run = lambda: cr.fused_convres_block(*args, residual=True,
+                                                     scale=scale)
+                ms = cuda_ms(run, 5)
                 plain_ms = cuda_ms(lambda: cr.reference_impl(
                     *args, residual=True, scale=scale), 5)
+                gms = graph_ms(run, 5)
             cost = cr.cost(B, h, w, 64, args[0].element_size(), scale)
             bnd, by = bound_ms(cost, dtype)
             log(f"    convres {h}x{w} scale={scale} {dtype}: kernel "
-                f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-                f"{bnd * 1e3:.1f} us ({by})")
+                f"{ms * 1e3:.1f} us ({gms * 1e3:.1f} from a CUDA graph), plain "
+                f"{plain_ms * 1e3:.1f} us, bound {bnd * 1e3:.1f} us ({by})")
             if dtype == torch.bfloat16 and scale != "down":
                 sites = sum(1 for s in CONVRES_DECODE if s == (h, w, scale))
                 accumulate(results, "convres_fwd", "x2_sample", sites, ms,
-                           plain_ms, bnd, cost, err)
+                           plain_ms, bnd, cost, err, graph_ms=gms)
 
 
 GRAD_NAMES = ["dx", "dw1", "db1", "dw2", "db2", "dw3", "db3", "dw4", "db4"]
@@ -403,12 +412,20 @@ def phase_convres_bwd(results):
                 err = check_close(f"convres B={bsz} {h}x{w} scale={scale}",
                                   run(), plain(), torch.bfloat16, quiet=True)
                 cost = cr.cost(bsz, h, w, 64, 2, scale)
-                bnd, _ = bound_ms(cost, torch.bfloat16)
-                accumulate(results, "convres_fwd", "x3_train", 2 * n,
-                           cuda_ms(run, 3), cuda_ms(plain, 3), bnd, cost, err)
+                bnd, by = bound_ms(cost, torch.bfloat16)
+                ms, plain_ms = cuda_ms(run, 3), cuda_ms(plain, 3)
+                gms = graph_ms(run, 3)
+                log(f"    convres B={bsz} {h}x{w} scale={scale} bf16: kernel "
+                    f"{ms * 1e3:.1f} us ({gms * 1e3:.1f} from a CUDA graph), "
+                    f"plain {plain_ms * 1e3:.1f} us, bound {bnd * 1e3:.1f} us "
+                    f"({by}), {2 * n} launches a train step, max abs err "
+                    f"{err:.3e}")
+                accumulate(results, "convres_fwd", "x3_train", 2 * n, ms,
+                           plain_ms, bnd, cost, err, graph_ms=gms)
     k2 = results[("convres_fwd", "x3_train")]
     log(f"  K2 at the training shapes, per train step (26 launches, bf16): "
-        f"kernel {k2['ms']:.2f} ms, plain {k2['plain_ms']:.2f} ms, "
+        f"kernel {k2['ms']:.2f} ms ({k2['graph_ms']:.2f} from CUDA graphs), "
+        f"plain {k2['plain_ms']:.2f} ms, "
         f"bound {k2['bound_ms']:.3f} ms, max abs err {k2['max_abs_err']:.3e}")
 
 
@@ -1040,6 +1057,7 @@ def phase_probes(results):
     before timing it, and raises on a mismatch."""
     ptxas_check("probe_cmajor_conv", "cmajor_conv_kernel")
     ptxas_check("probe_copy", "copy_async_kernel")
+    ptxas_check("probe_copy", "copy_kernel")
     heads = {}
     torch.cuda.synchronize()
     reset_counts()

@@ -73,6 +73,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mish_sm90.cuh"  // mish (ex2 + rcp)
 #include "mma_sm90.cuh"   // cp_async16, ldmatrix_x4(_trans), mma_bf16
 
 namespace {
@@ -166,26 +167,6 @@ __device__ __forceinline__ void cp_async_wait() {
 // any tap shift) fall on distinct banks, and each lane's A address is
 // one base plus a constant per tap
 __device__ __forceinline__ int op_offset(int p, int c) { return p * PSTRIDE + c; }
-
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float rcp_ftz(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// mish(x) = x tanh(softplus(x)) = x n / (n + 2), n = e^x (e^x + 2);
-// x itself above 20, as softplus's threshold gives it.  No branch, so
-// that a thread's elements run side by side.
-__device__ __forceinline__ float mish(float x) {
-  const float e = ex2_ftz(fminf(x, 20.f) * 1.44269504f);
-  const float n = e * (e + 2.f);
-  return x > 20.f ? x : x * n * rcp_ftz(n + 2.f);
-}
 
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 a = *reinterpret_cast<const float4*>(p);

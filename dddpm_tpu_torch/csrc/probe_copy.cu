@@ -13,12 +13,25 @@
 // much: 0.240 ms at 3.35 TB/s.
 //
 // What this design does about it:
-//   copy_kernel: block k of the grid copies tile k.  Every thread moves
-//   16-byte words, four loads in flight before their four stores,
-//   neighbouring threads on neighbouring words.  The grid is (N / tn, B), or flat (B * N / tn): the same
-//   blocks in another numbering, as a Hopper grid has no order.  The
-//   TPU's dimension semantics ("parallel" / "arbitrary") have no
-//   counterpart: blocks always run in parallel and in no order.
+//   copy_kernel: the copy is cut into chunks of CHUNK 16-byte words
+//   (32 KB, UNROLL = 8 a thread) that never straddle two tiles of tn
+//   tokens (a tile's tail is a part-chunk).  The grid is sized to the
+//   card, not to the tiles: whole waves of the blocks the SMs hold at
+//   once (several a SM), as many waves as leave each block one chunk or
+//   two, block k taking every gridDim-th chunk from chunk k on; so every
+//   tile is split evenly over the blocks whatever tn is, and no SM
+//   carries a tail alone.  Each thread keeps its 8 16-byte loads in
+//   flight before its 8 stores, streamed (st.global.cs): nothing reads
+//   the bytes again.  The 2-D grid (G / B, B) splits each sample's tiles
+//   among its row of blocks; the flat grid (G) splits all the tiles: the
+//   same chunks in another numbering, as a Hopper grid has no order.
+//   The TPU's dimension semantics ("parallel" / "arbitrary") have no
+//   counterpart: blocks always run in parallel and in no order.  (The
+//   first design, block k copying tile k whole, left 1.45 waves of 2 MB
+//   blocks on 132 SMs at the default, 16 KB in flight a block.  On an
+//   H100 80GB HBM3, 700 W, one resident set of blocks each walking many
+//   chunks was slower than these waves, and so was the loads' own
+//   streaming hint, ld.global.nc.L1::no_allocate.)
 //   copy_async_kernel: one thread a block drives the copy engine (TMA),
 //   on a persistent grid (as many one-warp blocks as fit on the SMs)
 //   that splits the bytes evenly: block k takes every gridDim.x-th chunk
@@ -42,10 +55,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int UNROLL = 4;
+constexpr int UNROLL = 8;
+constexpr int CHUNK = UNROLL * THREADS;   // 16-byte words a chunk (32 KB)
 // copy_async_kernel: a ring of STAGES stages of STAGE bytes; a stage is
 // loaded again while the READING newest stores may still be reading
 // theirs, so STAGES - READING loads are in flight
@@ -53,22 +69,57 @@ constexpr int STAGE = 16384;
 constexpr int STAGES = 6;
 constexpr int READING = 2;
 
-// Block k copies words [k * tile_words, (k + 1) * tile_words).
+// 16 bytes to global memory, streamed (evict first)
+__device__ __forceinline__ void st_stream(uint4* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1,%2,%3,%4};\n"
+               ::"l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+// Copies the chunks of `tiles` tiles of tile_words words from x to y:
+// chunk g is words [part * CHUNK, min(tile_words, (part + 1) * CHUNK))
+// of tile g / per_tile, part = g % per_tile.  Block row blockIdx.y takes
+// tiles [blockIdx.y * tiles, (blockIdx.y + 1) * tiles) (the 2-D grid: a
+// sample a row; flat, one row for them all), and its block k every
+// gridDim.x-th chunk of them from chunk k on.
 __global__ void __launch_bounds__(THREADS)
-copy_kernel(const uint4* x, uint4* y, long long tile_words, int flat) {
-  const long long k = flat ? (long long)blockIdx.x
-                           : (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  const uint4* src = x + k * tile_words;
-  uint4* dst = y + k * tile_words;
-  for (long long i = threadIdx.x; i < tile_words; i += UNROLL * THREADS) {
+copy_kernel(const uint4* x, uint4* y, long long tile_words, long long tiles) {
+  const long long per_tile = (tile_words + CHUNK - 1) / CHUNK;
+  const long long base = (long long)blockIdx.y * tiles * tile_words;
+  const long long total = per_tile * tiles;
+  for (long long g = blockIdx.x; g < total; g += gridDim.x) {
+    const long long part = g % per_tile;
+    const long long off = base + g / per_tile * tile_words + part * CHUNK;
+    const long long size = min((long long)CHUNK, tile_words - part * CHUNK);
+    const uint4* src = x + off;
+    uint4* dst = y + off;
     uint4 v[UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u)
-      if (i + u * THREADS < tile_words) v[u] = src[i + u * THREADS];
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = threadIdx.x + u * THREADS;
+      if (i < size) v[u] = src[i];
+    }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u)
-      if (i + u * THREADS < tile_words) dst[i + u * THREADS] = v[u];
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = threadIdx.x + u * THREADS;
+      if (i < size) st_stream(dst + i, v[u]);
+    }
   }
+}
+
+// blocks of `kernel` resident on the card at once (threads a block,
+// dynamic shared memory), or a negative CUDA error
+int resident_blocks(const void* kernel, int threads, int smem) {
+  int dev, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 0)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return -(int)err;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  return sms * per_sm;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -184,15 +235,31 @@ bool bad_tiles(int B, long long N, int C, int elem, int tn) {
 extern "C" {
 
 // y = x for x (B, N, C) of elem-byte elements, 16-byte aligned; y may
-// be x.  Block tiles of tn tokens, tn * C * elem a multiple of 16;
-// flat: a 1-D grid (B * N / tn) in place of (N / tn, B).
+// be x.  Tiles of tn tokens, tn * C * elem
+// a multiple of 16; flat: one row of blocks splits all B * N / tn
+// tiles, in place of a row of blocks a sample.
 int probe_copy(const void* x, void* y, int B, long long N, int C, int elem, int tn,
                int flat, void* stream) {
   if (bad_tiles(B, N, C, elem, tn)) return (int)cudaErrorInvalidValue;
+  static int cap = 0;   // blocks resident on the card at once
+  if (cap == 0) cap = resident_blocks((const void*)copy_kernel, THREADS, 0);
+  if (cap < 0) {
+    const int err = -cap;
+    cap = 0;
+    return err;
+  }
   const long long nt = N / tn, words = (long long)tn * C * elem / 16;
-  const dim3 grid = flat ? dim3((unsigned)(nt * B)) : dim3((unsigned)nt, B);
+  const long long rows = flat ? 1 : B;
+  const long long chunks = (words + CHUNK - 1) / CHUNK * nt * B;
+  // whole waves of the card's resident blocks, as many as leave each
+  // block a chunk or two (never more blocks than chunks), split evenly
+  // over the rows of the grid
+  const long long waves = std::max(1LL, chunks / cap);
+  const long long per_row =
+      std::max(1LL, std::min(chunks / rows, waves * cap / rows));
+  const dim3 grid((unsigned)per_row, (unsigned)rows);
   copy_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint4*)x, (uint4*)y, words, flat);
+      (const uint4*)x, (uint4*)y, words, flat ? nt * B : nt);
   return (int)cudaGetLastError();
 }
 
@@ -201,21 +268,12 @@ int probe_copy_async(const void* x, void* y, int B, long long N, int C, int elem
                      int tn, void* stream) {
   if (bad_tiles(B, N, C, elem, tn) || x == y) return (int)cudaErrorInvalidValue;
   static int grid_cap = 0;   // blocks resident on the card at once
-  if (grid_cap == 0) {
-    int dev, sms, per_sm;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(copy_async_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 STAGES * STAGE);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, copy_async_kernel, 32, STAGES * STAGE);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    grid_cap = sms * per_sm;
+  if (grid_cap == 0)
+    grid_cap = resident_blocks((const void*)copy_async_kernel, 32, STAGES * STAGE);
+  if (grid_cap < 0) {
+    const int err = -grid_cap;
+    grid_cap = 0;
+    return err;
   }
   const long long tile_bytes = (long long)tn * C * elem, ntiles = B * (N / tn);
   const long long chunks = (tile_bytes + STAGE - 1) / STAGE * ntiles;

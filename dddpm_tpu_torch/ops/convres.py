@@ -92,8 +92,10 @@ def backward_reference(x, w1, b1, w2, b2, w3, b3, w4, b4, dy,
         return torch.autograd.grad(y, inputs, dy.to(y.dtype))
 
 
-def _lib():
-    lib = _build.load("convres_fwd")
+def library(defines=()):
+    """csrc/convres_fwd.cu's library (built with `defines`, see
+    _build.load), its C entry typed."""
+    lib = _build.load("convres_fwd", tuple(defines))
     if lib.convres_fwd.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.convres_fwd.argtypes = [vp] * 10 + [i] * 7 + [vp]
@@ -112,8 +114,11 @@ def _lib_bwd():
     return lib
 
 
-def _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4) -> None:
-    """Raises on what the kernels do not take."""
+def _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4,
+                 forward: bool = False) -> None:
+    """Raises on what the kernels do not take; `forward`, also on what
+    K2 alone does not take (a bfloat16 x that is not 16-byte aligned:
+    its tensor-core path loads and stores 16-byte pieces)."""
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPES:
@@ -123,6 +128,8 @@ def _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4) -> None:
     c, cm = x.shape[-1], MID_CHANNELS
     if c not in IO_CHANNELS:
         raise ValueError(f"kernel takes {IO_CHANNELS} channels, got {c}")
+    if forward and x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        raise ValueError("the forward kernel needs a 16-byte aligned bfloat16 x")
     shapes = {"w1": (w1, (1, 1, c, cm)), "w2": (w2, (3, 3, cm, cm)),
               "w3": (w3, (3, 3, cm, cm)), "w4": (w4, (1, 1, cm, c)),
               "b1": (b1, (cm,)), "b2": (b2, (cm,)), "b3": (b3, (cm,)),
@@ -135,7 +142,7 @@ def _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4) -> None:
 
 def _kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, residual, scale):
     """K2: the forward kernel."""
-    _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4)
+    _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4, forward=True)
     bsz, h, w, c = x.shape
     if scale not in _SCALES:
         raise ValueError(f"scale must be None, 'up' or 'down', got {scale!r}")
@@ -146,7 +153,7 @@ def _kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, residual, scale):
     ws = [t.to(x.dtype).contiguous() for t in (w1, w2, w3, w4)]
     bs = [t.float().contiguous() for t in (b1, b2, b3, b4)]
     p = _build.ptr
-    lib = _lib()
+    lib = library()
     LAUNCHES["convres_fwd"] += 1
     status = lib.convres_fwd(
         p(x), p(ws[0]), p(bs[0]), p(ws[1]), p(bs[1]), p(ws[2]), p(bs[2]),

@@ -2,9 +2,13 @@
 output pass (counterpart of scripts/probe_attention_writeback.py):
 identity copies of x (B, N, C) through csrc/probe_copy.cu.
 
-  base-<tn>    copy_kernel, tn tokens a block (8192, 4096, 2048, 1024),
-               grid (N / tn, B), 16-byte loads and stores
-  flat-8192    the same blocks on a 1-D grid (B * N / tn)
+  base-<tn>    copy_kernel on tiles of tn tokens (8192, 4096, 2048,
+               1024) cut into 32 KB chunks: whole waves of the blocks
+               the SMs hold at once, one or two chunks a block, a row of
+               blocks a sample; 16-byte loads and streamed stores, eight
+               in flight a thread
+  flat-8192    the same chunks split by one row of blocks over all the
+               tiles
   alias-8192   in place: y is x (the probe's input_output_aliases)
   manual-<tn>  copy_async_kernel: a ring of shared-memory stages loaded
                and stored by the copy engine (TMA bulk copies), several

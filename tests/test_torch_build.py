@@ -76,12 +76,25 @@ def test_a_header_edit_names_another_library(build_dir, tmp_path, monkeypatch):
     assert _build._target("conv3x3") == first
 
 
-@pytest.mark.parametrize("name", ["conv3x3", "winograd", "probe_cmajor_conv"])
+@pytest.mark.parametrize("name", ["conv3x3", "winograd", "probe_cmajor_conv",
+                                  "convres_fwd"])
 def test_tensor_core_kernels_share_one_copy_of_the_fragment_helpers(name):
-    """K5, K6 and P4 include csrc/mma_sm90.cuh and define none of its
+    """K5, K6, P4 and K2 include csrc/mma_sm90.cuh and define none of its
     helpers themselves, so they cannot drift apart."""
     source = (_build.CSRC / f"{name}.cu").read_text()
     assert '#include "mma_sm90.cuh"' in source
     for helper in ("cp_async16(", "ldmatrix_x4(", "ldmatrix_x4_trans(",
                    "stmatrix_x4_trans(", "mma_bf16("):
         assert f"void {helper}" not in source, helper
+
+
+@pytest.mark.parametrize("name", ["conv3x3", "convres_fwd"])
+def test_mish_kernels_share_one_copy_of_the_fast_mish(name):
+    """K5 and K2 include csrc/mish_sm90.cuh (mish by one ex2 and one rcp)
+    and define neither it nor its two instructions' helpers themselves."""
+    source = (_build.CSRC / f"{name}.cu").read_text()
+    assert '#include "mish_sm90.cuh"' in source
+    for helper in ("mish(", "ex2_ftz(", "rcp_ftz("):
+        assert f"float {helper}" not in source, helper
+    for slow in ("expf(", "log1pf(", "tanhf("):
+        assert slow not in source, slow

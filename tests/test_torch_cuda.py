@@ -37,11 +37,15 @@ def card():
     return torch.device("cuda")
 
 
-def _close(got, want, dtype):
+def _tol(want, dtype):
     # bf16: stages rounded in other places (one bf16 ulp each, 0.4-0.8%);
     # f32: sums in other orders
-    tol = (3e-2 if dtype == torch.bfloat16 else 1e-3) * max(
+    return (3e-2 if dtype == torch.bfloat16 else 1e-3) * max(
         1.0, float(want.float().abs().max()))
+
+
+def _close(got, want, dtype):
+    tol = _tol(want, dtype)
     err = float((got.float() - want.float()).abs().max())
     assert err <= tol, (err, tol)
 
@@ -75,8 +79,13 @@ def test_attention_kernels_match_plain(card, dtype, bsz, n, c):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("scale", [None, "up", "down"])
+# (1, 40, 36, 32), (2, 22, 50, 64): W (and H) not multiples of the bf16
+# tile (8 x 16 px); (2, 26, 40, 128): cio 128's 4 x 16 tile, H and W not
+# multiples of it; (6, 256, 256, 64): 3072 tiles, more than the
+# persistent grid has blocks, so that each block walks several
 @pytest.mark.parametrize("bsz,h,w,c", [(2, 32, 64, 64), (1, 40, 36, 32),
-                                       (1, 16, 16, 128)])
+                                       (1, 16, 16, 128), (2, 22, 50, 64),
+                                       (2, 26, 40, 128), (6, 256, 256, 64)])
 def test_convres_kernel_matches_plain(card, dtype, scale, bsz, h, w, c):
     gen = torch.Generator(device=card).manual_seed(h * w + c)
     r = lambda *s: torch.randn(*s, generator=gen, device=card)
@@ -92,6 +101,20 @@ def test_convres_kernel_matches_plain(card, dtype, scale, bsz, h, w, c):
             _close(got, cr.reference_impl(*args, residual=residual,
                                           scale=scale), dtype)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_convres_check_fails_mirrored_taps(card, dtype):
+    """The check above sees a wrong 3x3: K2 given w2 with its kx taps
+    mirrored misses the plain version (on the true w2) by far more than
+    the tolerance."""
+    args, _ = _convres_args(card, 2, 32, 48, 64, dtype, 17)
+    mirrored = (*args[:3], args[3].flip(1).contiguous(), *args[4:])
+    with torch.no_grad():
+        want = cr.reference_impl(*args, residual=False)
+        got = cr.fused_convres_block(*mirrored, residual=False)
+        _close(cr.fused_convres_block(*args, residual=False), want, dtype)
+    assert float((got.float() - want.float()).abs().max()) > 5 * _tol(want, dtype)
 
 
 def test_attention_kernel_gradients_match_plain(card):
@@ -174,6 +197,12 @@ def test_kernel_paths_refuse_what_they_cannot_take(card):
     for grad in (True, False):
         with torch.set_grad_enabled(grad), pytest.raises(ValueError):
             cr.fused_convres_block(torch.zeros(1, 8, 8, 48, device=card), w, *rest)
+    # K2 on bfloat16: x must be 16-byte aligned
+    cw = (torch.zeros(1, 1, 32, 32, device=card), *rest[:5],
+          torch.zeros(1, 1, 32, 32, device=card), torch.zeros(32, device=card))
+    xm = torch.zeros(8 * 8 * 32 + 1, device=card, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError):
+        cr.fused_convres_block(xm.view(1, 8, 8, 32), *cw)
     z = lambda *s, dt=torch.float32: torch.zeros(*s, device=card, dtype=dt)
     # K5: a wrong dtype, an unsupported width (Cin 48), a lone post_bias
     with pytest.raises(TypeError):
@@ -466,7 +495,7 @@ def test_probe_copies_are_exact(card, variant, dtype):
 @pytest.mark.parametrize("tn,c", [(100, 40), (1000, 40), (9, 16)])
 def test_probe_copy_ragged_tiles(card, tn, c):
     """Tiles of 8000 and 80000 bytes (less than a stage, two stages and
-    a part) and 288 bytes (not a multiple of the copy kernel's 4 x 256
+    a part) and 288 bytes (not a multiple of the copy kernel's 8 x 256
     words)."""
     x = _rand(card, 51)(3, 9 * tn, c).to(torch.bfloat16)
     for y in (p2.copy_async_kernel(x, tn), p2.copy_kernel(x, tn),
