@@ -11,10 +11,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the main paths' shapes, in bf16 and in f32 (TF32 off), and times both
    with CUDA events: the attention block and the ConvResBlock forward at
    the x2 sampling shapes (B = 8; K2's ptxas line first, no spill
-   allowed), the attention block and the ConvResBlock backward and
-   forward at the x3 training shapes; K2's time logged per shape, eager
-   (the kernels line's `ms`) and replayed from a CUDA graph (`graph_ms`:
-   its kernels without the host's gaps between launches);
+   allowed), the attention block and the ConvResBlock backward (K3's
+   ptxas line first, no spill allowed) and forward at the x3 training
+   shapes; K2's and K3's bf16 times logged per shape, eager (the kernels
+   line's `ms`) and replayed from a CUDA graph (`graph_ms`: its kernels
+   without the host's gaps between launches);
 4. drives the x2 dDDPM sampling path through the port's entry points
    (build_model -> init_fn -> generate_samples, a chain cut to
    CHAIN_STEPS steps, then p_sample_chain over ts = [2, 1, 0]) with the
@@ -60,7 +61,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    TPU probe's default size holds every variant of its kernels against
    its plain version on the card, then times it (P4 beside cuDNN on
    NCHW, the entry's `library_ms`, and on channels_last,
-   `library_cl_ms`).
+   `library_cl_ms`); then K3's ablation (probes/convres_bwd_ablation.py:
+   K3 with parts compiled out, timed at the x3 training shapes).
 
 The last three lines are a JSON object with the kernels' numbers (one
 entry per kernel and path, its launches counted on that path's own run),
@@ -87,6 +89,7 @@ from dddpm_tpu_torch.ops.math import mish
 from dddpm_tpu_torch.probes import attention_ceiling as probe_p1
 from dddpm_tpu_torch.probes import attention_writeback as probe_p2
 from dddpm_tpu_torch.probes import cmajor_conv as probe_p4
+from dddpm_tpu_torch.probes import convres_bwd_ablation as k3_ablation
 from dddpm_tpu_torch.probes import convres_variants as probe_p3
 from dddpm_tpu_torch.probes._util import (
     HBM_BYTES_PER_S,
@@ -370,11 +373,21 @@ GRAD_NAMES = ["dx", "dw1", "db1", "dw2", "db2", "dw3", "db3", "dw4", "db4"]
 
 
 def phase_convres_bwd(results):
-    """K3 against backward_reference at the five training shapes (B_REC
-    recon rows), bf16 and f32; times both.  Also checks and times K2 at
-    the training shapes (bf16): its 9 launches at B_REC and 4 at B_TRAIN
-    per micro-batch.  Both per train step of two micro-batches."""
+    """K3's ptxas line (no spill allowed); K3 against backward_reference
+    at the five training shapes (B_REC recon rows), bf16 and f32; times
+    both (bf16 also replayed from a CUDA graph).  Also checks and times
+    K2 at the training shapes (bf16): its 9 launches at B_REC and 4 at
+    B_TRAIN per micro-batch.  Both per train step of two micro-batches."""
+    # no spill in the bf16 kernel (tc::convres_bwd_kernel, one per cio);
+    # the f32 FMA kernel, the first design and on no default path, is
+    # printed only
+    bf16 = [k for k in ptxas_log("convres_bwd")
+            if "tc18convres_bwd_kernel" in k["kernel"]]
+    assert len(bf16) == 3, bf16
+    for k in bf16:
+        assert k["spill_stores"] == k["spill_loads"] == 0, k
     gen = torch.Generator(device="cuda").manual_seed(2)
+    shares = {}
     for dtype in (torch.bfloat16, torch.float32):
         log(f"ConvResBlock backward (K3), B={B_REC}, {dtype}:")
         for (h, w, scale), n in TRAIN_BLOCKS:
@@ -388,18 +401,34 @@ def phase_convres_bwd(results):
                     for name, g, t in zip(GRAD_NAMES, got, want)]
             err = max(errs)
             share = max(e / tolerance(t, dtype) for e, t in zip(errs, want))
-            ms = cuda_ms(lambda: cr._bwd_kernel(*args, dy, True), 3)
+            shares[dtype] = max(shares.get(dtype, 0.0), share)
+            run = lambda: cr._bwd_kernel(*args, dy, True)
+            ms = cuda_ms(run, 3)
             plain_ms = cuda_ms(lambda: cr.backward_reference(*args, dy, True), 3)
             cost = cr.cost_bwd(B_REC, h, w, 64, args[0].element_size())
             bnd, by = bound_ms(cost, dtype)
-            log(f"    convres_bwd {h}x{w} ({scale}) {dtype}: kernel "
-                f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-                f"{bnd * 1e3:.1f} us ({by}); 9 gradients ok, max abs err "
-                f"{err:.3e}, at most {share:.1%} of its tolerance")
             if dtype == torch.bfloat16:
+                gms = graph_ms(run, 3)
+                log(f"    convres_bwd {h}x{w} ({scale}) {dtype}: kernel "
+                    f"{ms * 1e3:.1f} us ({gms * 1e3:.1f} from a CUDA graph), "
+                    f"plain {plain_ms * 1e3:.1f} us, bound {bnd * 1e3:.1f} us "
+                    f"({by}); 9 gradients ok, max abs err {err:.3e}, at most "
+                    f"{share:.1%} of its tolerance")
                 # per train step: 2 micro-batches, n launches of this shape
                 accumulate(results, "convres_bwd", "x3_train", 2 * n, ms,
-                           plain_ms, bnd, cost, err)
+                           plain_ms, bnd, cost, err, graph_ms=gms)
+            else:
+                log(f"    convres_bwd {h}x{w} ({scale}) {dtype}: kernel "
+                    f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+                    f"{bnd * 1e3:.1f} us ({by}); 9 gradients ok, max abs err "
+                    f"{err:.3e}, at most {share:.1%} of its tolerance")
+    k3 = results[("convres_bwd", "x3_train")]
+    log(f"  K3 at the training shapes, per train step ({2 * BWD_PER_MB} "
+        f"launches, bf16): kernel {k3['ms']:.2f} ms ({k3['graph_ms']:.2f} from "
+        f"CUDA graphs), plain {k3['plain_ms']:.2f} ms, bound "
+        f"{k3['bound_ms']:.3f} ms; the largest share of its tolerance "
+        f"{shares[torch.bfloat16]:.1%} (bf16), {shares[torch.float32]:.1%} "
+        f"(f32)")
     with torch.no_grad():
         for bsz, blocks in ((B_REC, TRAIN_BLOCKS), (B_TRAIN, TRAIN_BLOCKS[:3])):
             for (h, w, scale), n in blocks:
@@ -860,17 +889,24 @@ def graph_ms(fn, iters: int) -> float:
     return cuda_ms(graph.replay, iters)
 
 
-def ptxas_check(name: str, kernel: str = ""):
+def ptxas_log(name: str) -> list:
     """Prints the ptxas line of each kernel of csrc/<name>.cu (registers,
-    spill bytes) from the log its build kept; fails on a spill or when
-    the log holds no `kernel` (by default `<name>_kernel`)."""
+    spill bytes) from the log its build kept, and returns them."""
     report = _build.ptxas_report(name)
-    kernel = kernel or f"{name}_kernel"
-    assert any(kernel in k["kernel"] for k in report), (kernel, report)
     for k in report:
         log(f"  ptxas {name}: {k['kernel']}: {k['registers']} registers, "
             f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} "
             f"bytes spill loads")
+    return report
+
+
+def ptxas_check(name: str, kernel: str = ""):
+    """ptxas_log(name); fails on a spill or when the log holds no
+    `kernel` (by default `<name>_kernel`)."""
+    report = ptxas_log(name)
+    kernel = kernel or f"{name}_kernel"
+    assert any(kernel in k["kernel"] for k in report), (kernel, report)
+    for k in report:
         assert k["spill_stores"] == k["spill_loads"] == 0, k
 
 
@@ -1072,6 +1108,10 @@ def phase_probes(results):
     # the shipped K1 and K2 launch too: P1 and P3 time them beside the
     # variants
     log(f"probes: {time.time() - t0:.1f} s; launches: {launched}")
+    # K3 with parts compiled out (nothing checked, only timed; main()
+    # builds its variants, one nvcc each, all at once)
+    log("--- dddpm_tpu_torch.probes.convres_bwd_ablation ---")
+    k3_ablation.main([])
     for name in names:
         assert launched[name] > 0, (name, launched)
         h = heads[name]

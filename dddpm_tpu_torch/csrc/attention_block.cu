@@ -71,6 +71,11 @@ constexpr int FOLD_ROWS = 16;     // W_eff rows a one-pass fold item forms
 constexpr float K_CLAMP = 60.0f;
 constexpr float LN_EPS = 1e-5f;
 
+// The widths every kernel takes, C = 32 * NC for NC = 1 .. 8 (C % 32 == 0,
+// C <= 256: ln_tile holds a token's C / 32 values a lane in 8 registers).
+// Pass B and the one-pass kernel are instantiated for each.
+#define DDDPM_WIDTHS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -437,13 +442,13 @@ template <typename T>
 int out_launch(const void* x, const void* g, const void* b, const void* weff,
                const void* b_out, void* y, int B, int N, int C,
                cudaStream_t stream) {
+#define DDDPM_OUT(NC) \
+  case 32 * NC: return out_launch_nc<T, NC>(x, g, b, weff, b_out, y, B, N, stream);
   switch (C) {
-    case 32: return out_launch_nc<T, 1>(x, g, b, weff, b_out, y, B, N, stream);
-    case 64: return out_launch_nc<T, 2>(x, g, b, weff, b_out, y, B, N, stream);
-    case 128: return out_launch_nc<T, 4>(x, g, b, weff, b_out, y, B, N, stream);
-    case 256: return out_launch_nc<T, 8>(x, g, b, weff, b_out, y, B, N, stream);
+    DDDPM_WIDTHS(DDDPM_OUT)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef DDDPM_OUT
 }
 
 // Blocks of block_1p_kernel<T, NC> that fit on the card at once, or a
@@ -491,13 +496,13 @@ int launch_1p(const void* x, const void* g, const void* b, const void* wkv,
 
 template <typename T>
 int resident_1p_c(int C) {
+#define DDDPM_RESIDENT(NC) \
+  case 32 * NC: return resident_1p<T, NC>();
   switch (C) {
-    case 32: return resident_1p<T, 1>();
-    case 64: return resident_1p<T, 2>();
-    case 128: return resident_1p<T, 4>();
-    case 256: return resident_1p<T, 8>();
+    DDDPM_WIDTHS(DDDPM_RESIDENT)
     default: return -(int)cudaErrorInvalidValue;
   }
+#undef DDDPM_RESIDENT
 }
 
 template <typename T>
@@ -508,13 +513,13 @@ int launch_1p_c(const void* x, const void* g, const void* b, const void* wkv,
 #define DDDPM_LAUNCH_1P(NC)                                                      \
   launch_1p<T, NC>(x, g, b, wkv, wq, wout, b_out, part_a, part_s, ctx4, weff, y, \
                    B, N, nchunks, tpc, grid, stream)
+#define DDDPM_CASE_1P(NC) \
+  case 32 * NC: return DDDPM_LAUNCH_1P(NC);
   switch (C) {
-    case 32: return DDDPM_LAUNCH_1P(1);
-    case 64: return DDDPM_LAUNCH_1P(2);
-    case 128: return DDDPM_LAUNCH_1P(4);
-    case 256: return DDDPM_LAUNCH_1P(8);
+    DDDPM_WIDTHS(DDDPM_CASE_1P)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef DDDPM_CASE_1P
 #undef DDDPM_LAUNCH_1P
 }
 

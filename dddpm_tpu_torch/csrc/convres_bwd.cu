@@ -1,4 +1,6 @@
-// Fused ConvResBlock backward for Hopper (sm_90a).
+// Fused ConvResBlock backward for Hopper (sm_90a), its bf16 recompute and
+// data-gradient products on the tensor cores (mma.sync, bf16 operands,
+// f32 sums).
 //
 // Replaces the TPU kernel dddpm_tpu/ops/pallas/convres.py:_bwd_kernel,
 // reached from fused_convres_block's custom VJP (_vjp_bwd ->
@@ -18,44 +20,98 @@
 //               dw2[k] = sum m1(P + off_k)^T g2(P), dw1 = sum m0^T g1,
 //               db4..db1 = sums of dy, g3, g2, g1, over every pixel P.
 // Operands are rounded to the activation type where the JAX kernel
-// rounds them (m0..m3, g3..g1); every sum is float32 and the weight and
-// bias gradients come out in float32.
+// rounds them (m0..m3, g3..g1); mish'(p) is taken of the f32 p; every
+// sum is float32 and the weight and bias gradients come out in float32.
 //
 // What bounds it on an H100: at 256^2, CIO 64, one sample reads x and dy
 // and writes dx (25 MB in bf16) and does ~8.8 GFLOP (the first three
 // convs recomputed, then the data and weight gradients of all four),
 // ~350 FLOP/B, above the card's ~295 FLOP/B ridge: at the bf16
-// tensor-core rate the bound is operations.  This first
-// version runs its products as FMA loops on CUDA cores, so it is far
-// from that bound; it is simple and exact.
+// tensor-core rate the bound is operations.  This design runs the seven
+// products of the recompute and the data-gradient chain on mma.sync and
+// the four weight-gradient sums (a third of the FLOP) as FMA loops on
+// the CUDA cores, which then bound it.
 //
-// What this design does about it:
-// - One block walks over output tiles of TH x TW pixels (a loop over
-//   tiles takes the place of the TPU's sequential grid).  Each tile holds
-//   every intermediate in shared memory: m1 on the tile grown by 4
-//   pixels each side, m2 by 3, g3 by 2, g2 and mish'(p2) by 1, g1 and m3
-//   on the tile itself.  x and dy are read from device memory with their
-//   halos, dx is written once.
-// - Weight gradients: the TPU kernel adds into resident float32 blocks
-//   across its sequential grid.  Here each block keeps one float32
-//   partial of all eight gradients in a workspace the wrapper allocates
-//   (every element owned by one thread, so no atomics), adding each
-//   tile's sums over its central pixels only (never its halo).  A second
-//   kernel then sums the blocks' partials in block order: deterministic.
-// - Transposed 3x3 convs read the same weights as the forward ones with
-//   ci and co swapped and the taps mirrored; rows of the weights in
-//   shared memory are padded to 33 floats so both orders are free of
-//   bank conflicts.
+// What this design does about it (bf16): one block an SM walks over
+// output tiles of TH x 16 pixels of one sample (8 x 16 at CIO 32 and 64,
+// 4 x 16 at CIO 128), a loop over tiles in place of the TPU's sequential
+// grid.  Each tile keeps every intermediate in shared memory, bf16 in
+// 80-byte pixel rows (ldmatrix without bank conflicts) on regions that
+// shrink by one pixel a side per 3x3: m1 on the tile grown by 4 (R4, 16
+// x 24 at TH 8), m2 by 3 (R3), g3 by 2 (R2), g2 by 1 (R1), g1 on the
+// tile; mish'(p2) on R1 and mish'(p1) on the tile stay f32.  The seven
+// products are implicit GEMMs, M = pixels, each lane's ldmatrix row
+// address its own pixel, so that a 3x3 tap is a constant offset:
+//   G1 m0 . w1 on R4 (x band by cp.async, m0's mish on the A fragments)
+//   G2 the 3x3 over m1 on R3, G3 the 3x3 over m2 on R2,
+//   U3 dy . w4^T on R2 (dy band by cp.async), in G3's pass: g3 = U3 mish'(p3)
+//   T2 conv3x3^T(g3, w3) on R1, T1 conv3x3^T(g2, w2) on the tile,
+//   D  g1 . w1^T on the tile, N = CIO: dx = D mish'(x) (+ dy), stored.
+// Every weight lives once in shared memory: the forward products read
+// it as [k][n] by ldmatrix.trans, the transposed ones as [n][k] by
+// ldmatrix, at the mirrored tap 8 - k for the 3x3s, so w1..w4 serve both
+// directions.  The x band's room is taken over, once G1 has read it, by
+// the dy band, g2 and m3; mish'(p1)'s and mish'(p2)'s, once T1 has read
+// them, by m0 and g1.  Every warp runs every stage, with a barrier
+// between stages.  The weight gradients: warp w sums tap w of dw3 and
+// dw2 (a lane 4 ci x 8 co) in registers over all of the block's tiles;
+// dw1, dw4 and the biases' sums go into the block's partial tile by
+// tile.  Each block writes one float32 partial of all eight gradients
+// (every element owned by one thread, no atomics), summed over the tile's
+// pixels in the image only, and convres_bwd_reduce sums the blocks'
+// partials in block order: deterministic.
+//
+// float32 is on no default path and keeps the kernel's first design
+// (namespace f32), selected by the dtype argument (not a fallback): 8 x 8
+// tiles, FMA loops, one warp a pixel, one lane a channel, f32 weights
+// and intermediates in shared memory.
+//
+// CONVRES_SKIP (a -D define, 0 by default; csrc/convres_sm90.cuh) compiles
+// parts of the bf16 kernel out, by bit: 1 the products (mma), 2 mish and
+// mish', 4 the global traffic (the x and dy bands, x at the tile, dx), 8
+// the weight-gradient sums.  Only the ablation probe
+// (probes/convres_bwd_ablation.py) sets it; its kernels compute garbage.
 //
 // C interface: plain C entry, loaded with ctypes.  It launches on the
 // stream it is given, allocates nothing, does not synchronise and
-// returns cudaGetLastError().
+// returns cudaGetLastError().  bf16 x and dy must be 16-byte aligned.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "convres_sm90.cuh"  // bf16, CM, MS, SKIP, pack2, act_dact, gemm32(_nb)
+#include "mma_sm90.cuh"      // cp_async16
 
 namespace {
 
-constexpr int CM = 32;        // mid channels: one warp lane each
+template <int CIO>
+struct Layout {   // float offsets of the eight gradients in one partial
+  static constexpr int DW1 = 0;
+  static constexpr int DB1 = DW1 + CIO * CM;
+  static constexpr int DW2 = DB1 + CM;
+  static constexpr int DB2 = DW2 + 9 * CM * CM;
+  static constexpr int DW3 = DB2 + CM;
+  static constexpr int DB3 = DW3 + 9 * CM * CM;
+  static constexpr int DW4 = DB3 + CM;
+  static constexpr int DB4 = DW4 + CM * CIO;
+  static constexpr int N = DB4 + CIO;
+};
+
+// out[e] = sum over blocks, in block order, of part[b][e]
+__global__ void convres_bwd_reduce(const float* part, int nblk, int n, float* out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int b = 0; b < nblk; ++b) s += part[(size_t)b * n + e];
+  out[e] = s;
+}
+
+// ---------------------------------------------------------------------
+// float32: the FMA kernel (the first design)
+// ---------------------------------------------------------------------
+
+namespace f32 {
+
 constexpr int CMP = CM + 1;   // padded row of a weight matrix in smem
 constexpr int TH = 8;         // central tile rows
 constexpr int TW = 8;         // central tile columns
@@ -68,13 +124,10 @@ constexpr int H2 = TH + 4, W2 = TW + 4;   // g3 (p3)
 constexpr int H1 = TH + 2, W1 = TW + 2;   // mish'(p2), then g2
 constexpr int NW33 = 9 * CM * CMP;        // a padded 3x3 weight
 
+// the kernel is instantiated for float only (bf16 takes namespace tc)
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f(from_f<T>(v));
 }
@@ -127,19 +180,6 @@ __device__ __forceinline__ float conv_t_at(const float* src, int sw, int r, int 
 }
 
 template <int CIO>
-struct Layout {   // float offsets of the eight gradients in one partial
-  static constexpr int DW1 = 0;
-  static constexpr int DB1 = DW1 + CIO * CM;
-  static constexpr int DW2 = DB1 + CM;
-  static constexpr int DB2 = DW2 + 9 * CM * CM;
-  static constexpr int DW3 = DB2 + CM;
-  static constexpr int DB3 = DW3 + 9 * CM * CM;
-  static constexpr int DW4 = DB3 + CM;
-  static constexpr int DB4 = DW4 + CM * CIO;
-  static constexpr int N = DB4 + CIO;
-};
-
-template <int CIO>
 constexpr int smem_floats() {
   return CIO * CMP + CM * (CIO + 1) + 2 * NW33 +
          (H4 * W4 + H3 * W3 + H2 * W2 + H1 * W1 + 2 * TH * TW) * CM;
@@ -178,7 +218,7 @@ __device__ __forceinline__ void wgrad3x3(const float* ms, int mw, const float* g
 
 template <typename T, int CIO>
 __global__ void __launch_bounds__(THREADS)
-convres_bwd_kernel(const T* x, const T* dy, const T* w1, const float* b1, const T* w2,
+convres_bwd_fma_kernel(const T* x, const T* dy, const T* w1, const float* b1, const T* w2,
                    const float* b2, const T* w3, const float* b3, const T* w4, T* dx,
                    float* part, int B, int H, int W, int residual) {
   using L = Layout<CIO>;
@@ -386,48 +426,566 @@ convres_bwd_kernel(const T* x, const T* dy, const T* w1, const float* b1, const 
   }
 }
 
-// out[e] = sum over blocks, in block order, of part[b][e]
-__global__ void convres_bwd_reduce(const float* part, int nblk, int n, float* out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float s = 0.f;
-  for (int b = 0; b < nblk; ++b) s += part[(size_t)b * n + e];
-  out[e] = s;
-}
-
 template <typename T, int CIO>
-int launch(const void* x, const void* dy, const void* w1, const void* b1, const void* w2,
-           const void* b2, const void* w3, const void* b3, const void* w4, void* dx,
-           void* part, void* out, int B, int H, int W, int residual, int nblk,
-           cudaStream_t stream) {
+int launch_fma(const void* x, const void* dy, const void* w1, const void* b1,
+               const void* w2, const void* b2, const void* w3, const void* b3,
+               const void* w4, void* dx,
+               void* part, int B, int H, int W, int residual, int nblk,
+               cudaStream_t stream) {
   const int smem = smem_floats<CIO>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      convres_bwd_kernel<T, CIO>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      convres_bwd_fma_kernel<T, CIO>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  convres_bwd_kernel<T, CIO><<<nblk, THREADS, smem, stream>>>(
+  convres_bwd_fma_kernel<T, CIO><<<nblk, THREADS, smem, stream>>>(
       (const T*)x, (const T*)dy, (const T*)w1, (const float*)b1, (const T*)w2,
       (const float*)b2, (const T*)w3, (const float*)b3, (const T*)w4, (T*)dx,
       (float*)part, B, H, W, residual);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+
+}  // namespace f32
+
+// ---------------------------------------------------------------------
+// bfloat16: the tensor cores
+// ---------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int TW = 16;          // output columns a tile: one m16 tile a row
+constexpr int NWARPS = 9;       // warp w sums tap w of dw2 and dw3
+constexpr int THREADS = 32 * NWARPS;
+
+// A tile of TH x TW output pixels at CIO in/out channels: its regions,
+// the tile grown by 4 (R4), 3 (R3), 2 (R2), 1 (R1) and 0 (T), and the
+// block's shared memory, offsets in bf16 elements: the weights, the
+// biases (f32), then X (the x band on R4 for G1; afterwards the dy band
+// on R2, g2 on R1 and m3 on T), m1 (R4), m2 (R3), g3 (R2), and F
+// (f32 mish'(p1) on T, then mish'(p2) on R1; after T1, m0 on T in dense
+// rows of CIO at its start and g1 on T at its end).
+template <int CIO, int TH_>
+struct Tile {
+  static constexpr int TH = TH_;
+  static constexpr int W4 = TW + 8, N4 = (TH + 8) * W4;
+  static constexpr int W3 = TW + 6, N3 = (TH + 6) * W3;
+  static constexpr int W2 = TW + 4, N2 = (TH + 4) * W2;
+  static constexpr int W1 = TW + 2, N1 = (TH + 2) * W1;
+  static constexpr int NT = TH * TW;
+  static constexpr int M4 = (N4 + 15) / 16, M3 = (N3 + 15) / 16;
+  static constexpr int M2 = (N2 + 15) / 16, M1 = (N1 + 15) / 16, MT = NT / 16;
+  // bf16 a pixel of the x and dy bands and a row of w4: (CIO + 8) x 2
+  // bytes, an odd multiple of 16
+  static constexpr int XS = CIO + 8;
+  static constexpr int O_W2 = CIO * MS;             // w1 first: [ci][co]
+  static constexpr int O_W3 = O_W2 + 9 * CM * MS;   // [tap * 32 + ci][co]
+  static constexpr int O_W4 = O_W3 + 9 * CM * MS;   // [cm][cio], XS a row
+  static constexpr int O_B = O_W4 + CM * XS;        // f32 b1 | b2 | b3
+  static constexpr int O_X = O_B + 3 * CM * 2;
+  static constexpr int X_G2 = N2 * XS, X_M3 = X_G2 + N1 * MS;
+  static constexpr int XSIZE = N4 * XS > X_M3 + NT * MS ? N4 * XS : X_M3 + NT * MS;
+  static constexpr int O_M1 = O_X + XSIZE;
+  static constexpr int O_M2 = O_M1 + N4 * MS;
+  static constexpr int O_G3 = O_M2 + N3 * MS;
+  static constexpr int O_F = O_G3 + N2 * MS;
+  static constexpr int FSIZE = (NT + N1) * CM * 2;  // two bf16 a float
+  static constexpr int F_G1 = FSIZE - NT * MS;
+  static constexpr int SMEM = (O_F + FSIZE) * 2;
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(NT * CIO <= F_G1 && F_G1 >= NT * CM * 2,
+                "m0 and g1 fit beside each other, g1 past mish'(p1)");
+  static_assert(O_X % 8 == 0 && XSIZE % 8 == 0 && O_F % 8 == 0 && F_G1 % 8 == 0 &&
+                    X_G2 % 8 == 0 && X_M3 % 8 == 0,
+                "16-byte aligned regions");
+};
+
+// float index of channel ch (even) of pixel px in a mish' array: the
+// 8-channel blocks of a pixel swizzled by px % 4, so that the float2
+// accesses of an epilogue (8 pixels x 4 channel pairs) miss no bank
+// twice in a half-warp
+__device__ __forceinline__ int dmi(int px, int ch) { return px * CM + (ch ^ ((px & 3) << 3)); }
+
+// N bf16 at p as floats: N = 4 from an 8-byte aligned p, else N a
+// multiple of 8 from a 16-byte aligned p
+template <int N>
+__device__ __forceinline__ void load_f(const bf16* p, float (&f)[N]) {
+  static_assert(N == 4 || N % 8 == 0, "whole 8- or 16-byte pieces");
+  if constexpr (N == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    f[0] = lo_f(v.x);
+    f[1] = hi_f(v.x);
+    f[2] = lo_f(v.y);
+    f[3] = hi_f(v.y);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        f[8 * i + 2 * e] = lo_f(u[e]);
+        f[8 * i + 2 * e + 1] = hi_f(u[e]);
+      }
+    }
+  }
+}
+
+// acc[i][j] += m[i] g[j]: 4 ci of m's pixel row at m, 8 co of g's at g
+__device__ __forceinline__ void outer48(float (&acc)[4][8], const bf16* m, const bf16* g) {
+  float mf[4], gf[8];
+  load_f(m, mf);
+  load_f(g, gf);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(mf[i], gf[j], acc[i][j]);
+}
+
+// gemm32_nb over the weights seen transposed (B as [n][k] rows of MS):
+// two m16 tiles where `two` (warp-uniform), else one
+template <int KSTEPS, typename AOff, typename BOff>
+__device__ __forceinline__ void gemm32t(float (&acc)[2][4][4], const bf16* const (&a_lane)[2],
+                                        bool two, const bf16* w, AOff a_off, BOff b_off,
+                                        int lane) {
+  if (two)
+    gemm32_nb<false, KSTEPS, 2, false, MS>(acc, a_lane, w, a_off, b_off, lane);
+  else
+    gemm32_nb<false, KSTEPS, 1, false, MS>(acc, a_lane, w, a_off, b_off, lane);
+}
+
+template <int CIO, int TH>
+__global__ void __launch_bounds__(THREADS, 1)
+convres_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                   const bf16* __restrict__ w1, const float* __restrict__ b1,
+                   const bf16* __restrict__ w2, const float* __restrict__ b2,
+                   const bf16* __restrict__ w3, const float* __restrict__ b3,
+                   const bf16* __restrict__ w4, bf16* __restrict__ dx,
+                   float* __restrict__ part, int B, int H, int W, int residual) {
+  using S = Tile<CIO, TH>;
+  using L = Layout<CIO>;
+  constexpr int W4 = S::W4, W3 = S::W3, W2 = S::W2, W1 = S::W1, XS = S::XS;
+  constexpr int CH = CIO / 8;   // 16-byte pieces a pixel
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const w1s = sm;
+  bf16* const w2s = sm + S::O_W2;
+  bf16* const w3s = sm + S::O_W3;
+  bf16* const w4s = sm + S::O_W4;
+  float* const bs = reinterpret_cast<float*>(sm + S::O_B);   // b1 | b2 | b3
+  bf16* const band = sm + S::O_X;        // R4 x XS: raw x (G1)
+  bf16* const dys = band;                // R2 x XS: raw dy (after G1)
+  bf16* const g2s = band + S::X_G2;      // R1 x MS
+  bf16* const m3s = band + S::X_M3;      // T x MS
+  bf16* const m1s = sm + S::O_M1;        // R4 x MS
+  bf16* const m2s = sm + S::O_M2;        // R3 x MS
+  bf16* const g3s = sm + S::O_G3;        // R2 x MS
+  float* const dm1 = reinterpret_cast<float*>(sm + S::O_F);   // T x CM (dmi)
+  float* const dm2 = dm1 + S::NT * CM;                        // R1 x CM (dmi)
+  bf16* const m0s = sm + S::O_F;         // T x CIO, after T1
+  bf16* const g1s = sm + S::O_F + S::F_G1;   // T x MS
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int la = lane & 15, lk = (lane >> 4) * 8;   // A row (pixel), k half
+  float* const pb = part + (size_t)blockIdx.x * L::N;
+
+  for (int i = tid; i < L::N; i += THREADS) pb[i] = 0.f;
+  for (int i = tid; i < CIO * CM; i += THREADS) {
+    w1s[(i / CM) * MS + i % CM] = w1[i];     // w1 (CIO, CM)
+    w4s[(i / CIO) * XS + i % CIO] = w4[i];   // w4 (CM, CIO)
+  }
+  for (int i = tid; i < 9 * CM * CM; i += THREADS) {
+    w2s[(i / CM) * MS + i % CM] = w2[i];
+    w3s[(i / CM) * MS + i % CM] = w3[i];
+  }
+  for (int i = tid; i < CM; i += THREADS) {
+    bs[i] = b1[i];
+    bs[CM + i] = b2[i];
+    bs[2 * CM + i] = b3[i];
+  }
+  __syncthreads();
+
+  // dw3 and dw2 of tap `warp`, ci 4 cb + i, co 8 ob + j, over every tile
+  const int cb = lane >> 2, ob = lane & 3;
+  float a3[4][8], a2[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a3[i][j] = a2[i][j] = 0.f;
+
+  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
+  const int ntiles = B * tiles_h * tiles_w;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int c0 = (tile % tiles_w) * TW, r0 = ((tile / tiles_w) % tiles_h) * TH;
+    const int bi = tile / (tiles_w * tiles_h);
+    const bf16* const xb = x + (size_t)bi * H * W * CIO;
+    const bf16* const dyb = dy + (size_t)bi * H * W * CIO;
+    bf16* const dxb = dx + (size_t)bi * H * W * CIO;
+    auto inside = [&](int gr, int gc) { return gr >= 0 && gr < H && gc >= 0 && gc < W; };
+    // a band of CIO channels on the tile grown by `grow` (row width wd),
+    // zero outside the image, into dst by 16-byte cp.async
+    auto load_band = [&](bf16* dst, const bf16* src, int grow, int wd, int n) {
+      for (int i = tid; i < n * CH; i += THREADS) {
+        const int px = i / CH, ch = i % CH;
+        const int gr = r0 - grow + px / wd, gc = c0 - grow + px % wd;
+        const bool in = inside(gr, gc);
+        const bf16* s = in ? src + ((size_t)gr * W + gc) * CIO + ch * 8 : src;
+        if (!(SKIP & 4)) cp_async16(dst + px * XS + ch * 8, s, in);
+      }
+      cp_async_commit();
+    };
+
+    load_band(band, xb, 4, W4, S::N4);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // G1 on R4: m1 = mish(round(mish(x)) . w1 + b1), 0 outside the
+    // image; mish'(p1) on the tile
+    for (int mt = warp; mt < S::M4; mt += 2 * NWARPS) {
+      const bool two = mt + NWARPS < S::M4;
+      const bf16* a_lane[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        a_lane[u] = band + min(16 * (mt + u * NWARPS) + la, S::N4 - 1) * XS + lk;
+      float acc[2][4][4];
+      gemm32<true, CIO / 16>(acc, a_lane, two, w1s, [](int s) { return 16 * s; }, lane);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (u == 1 && !two) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = 16 * (mt + u * NWARPS) + g + 8 * h;
+          if (px >= S::N4) continue;
+          const int pr = px / W4, pc = px % W4;
+          const bool in = inside(r0 - 4 + pr, c0 - 4 + pc);
+          const bool central = pr >= 4 && pr < TH + 4 && pc >= 4 && pc < TW + 4;
+          const int pt = (pr - 4) * TW + pc - 4;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int ch = 8 * nt + 2 * tq;
+            float m0_, d0, m1_, d1;
+            act_dact(acc[u][nt][2 * h] + bs[ch], m0_, d0);
+            act_dact(acc[u][nt][2 * h + 1] + bs[ch + 1], m1_, d1);
+            *reinterpret_cast<unsigned*>(m1s + px * MS + ch) = in ? pack2(m0_, m1_) : 0u;
+            if (central) *reinterpret_cast<float2*>(dm1 + dmi(pt, ch)) = make_float2(d0, d1);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    load_band(dys, dyb, 2, W2, S::N2);   // over the x band, under G2
+
+    // G2 on R3: m2 = mish(conv3x3(m1) + b2), 0 outside the image;
+    // mish'(p2) on R1
+    for (int mt = warp; mt < S::M3; mt += 2 * NWARPS) {
+      const bool two = mt + NWARPS < S::M3;
+      const bf16* a_lane[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int q = min(16 * (mt + u * NWARPS) + la, S::N3 - 1);
+        a_lane[u] = m1s + ((q / W3) * W4 + q % W3) * MS + lk;
+      }
+      float acc[2][4][4];
+      // step s: tap s / 2 = (ky, kx), channels 16 (s % 2) on
+      gemm32<false, 18>(acc, a_lane, two, w2s, [](int s) {
+        const int t = s >> 1;
+        return ((t / 3) * W4 + t % 3) * MS + 16 * (s & 1);
+      }, lane);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (u == 1 && !two) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = 16 * (mt + u * NWARPS) + g + 8 * h;
+          if (q >= S::N3) continue;
+          const int qr = q / W3, qc = q % W3;
+          const bool in = inside(r0 - 3 + qr, c0 - 3 + qc);
+          const bool in1 = qr >= 2 && qr < TH + 4 && qc >= 2 && qc < TW + 4;
+          const int q1 = (qr - 2) * W1 + qc - 2;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int ch = 8 * nt + 2 * tq;
+            float m0_, d0, m1_, d1;
+            act_dact(acc[u][nt][2 * h] + bs[CM + ch], m0_, d0);
+            act_dact(acc[u][nt][2 * h + 1] + bs[CM + ch + 1], m1_, d1);
+            *reinterpret_cast<unsigned*>(m2s + q * MS + ch) = in ? pack2(m0_, m1_) : 0u;
+            if (in1) *reinterpret_cast<float2*>(dm2 + dmi(q1, ch)) = make_float2(d0, d1);
+          }
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // G3 and U3 on R2: p3 = conv3x3(m2) + b3, u3 = dy . w4^T;
+    // g3 = round(u3 mish'(p3)) (0 outside the image, where dy is), m3 =
+    // round(mish(p3)) on the tile
+    for (int mt = warp; mt < S::M2; mt += NWARPS) {
+      const int q = min(16 * mt + la, S::N2 - 1);
+      const bf16* a_c[2] = {m2s + ((q / W2) * W3 + q % W2) * MS + lk, nullptr};
+      const bf16* a_u[2] = {dys + q * XS + lk, nullptr};
+      float acc[2][4][4], accu[2][4][4];
+      gemm32_n<false, 18, 1>(acc, a_c, w3s, [](int s) {
+        const int t = s >> 1;
+        return ((t / 3) * W3 + t % 3) * MS + 16 * (s & 1);
+      }, lane);
+      gemm32_nb<false, CIO / 16, 1, false, XS>(accu, a_u, w4s, [](int s) { return 16 * s; },
+                                               [](int s) { return 16 * s; }, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q2 = 16 * mt + g + 8 * h;
+        if (q2 >= S::N2) continue;
+        const int qr = q2 / W2, qc = q2 % W2;
+        const bool central = qr >= 2 && qr < TH + 2 && qc >= 2 && qc < TW + 2;
+        const int pt = (qr - 2) * TW + qc - 2;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int ch = 8 * nt + 2 * tq;
+          float m0_, d0, m1_, d1;
+          act_dact(acc[0][nt][2 * h] + bs[2 * CM + ch], m0_, d0);
+          act_dact(acc[0][nt][2 * h + 1] + bs[2 * CM + ch + 1], m1_, d1);
+          *reinterpret_cast<unsigned*>(g3s + q2 * MS + ch) =
+              pack2(accu[0][nt][2 * h] * d0, accu[0][nt][2 * h + 1] * d1);
+          if (central) *reinterpret_cast<unsigned*>(m3s + pt * MS + ch) = pack2(m0_, m1_);
+        }
+      }
+    }
+    __syncthreads();
+
+    // T2 on R1: g2 = round(conv3x3^T(g3, w3) mish'(p2)), 0 outside the
+    // image; window position t = (a, b) reads w3's tap 8 - t
+    for (int mt = warp; mt < S::M1; mt += 2 * NWARPS) {
+      const bool two = mt + NWARPS < S::M1;
+      const bf16* a_lane[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int q = min(16 * (mt + u * NWARPS) + la, S::N1 - 1);
+        a_lane[u] = g3s + ((q / W1) * W2 + q % W1) * MS + lk;
+      }
+      float acc[2][4][4];
+      gemm32t<18>(acc, a_lane, two, w3s, [](int s) {
+        const int t = s >> 1;
+        return ((t / 3) * W2 + t % 3) * MS + 16 * (s & 1);
+      }, [](int s) { return (8 - (s >> 1)) * CM * MS + 16 * (s & 1); }, lane);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (u == 1 && !two) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = 16 * (mt + u * NWARPS) + g + 8 * h;
+          if (q >= S::N1) continue;
+          const bool in = inside(r0 - 1 + q / W1, c0 - 1 + q % W1);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int ch = 8 * nt + 2 * tq;
+            const float2 d = *reinterpret_cast<const float2*>(dm2 + dmi(q, ch));
+            *reinterpret_cast<unsigned*>(g2s + q * MS + ch) =
+                in ? pack2(acc[u][nt][2 * h] * d.x, acc[u][nt][2 * h + 1] * d.y) : 0u;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // T1 on the tile (m16 tile = tile row): g1 = round(conv3x3^T(g2, w2)
+    // mish'(p1)), 0 outside the image
+    for (int mt = warp; mt < S::MT; mt += 2 * NWARPS) {
+      const bool two = mt + NWARPS < S::MT;
+      const bf16* a_lane[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        a_lane[u] = g2s + (min(mt + u * NWARPS, S::MT - 1) * W1 + la) * MS + lk;
+      float acc[2][4][4];
+      gemm32t<18>(acc, a_lane, two, w2s, [](int s) {
+        const int t = s >> 1;
+        return ((t / 3) * W1 + t % 3) * MS + 16 * (s & 1);
+      }, [](int s) { return (8 - (s >> 1)) * CM * MS + 16 * (s & 1); }, lane);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (u == 1 && !two) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = mt + u * NWARPS, col = g + 8 * h, pt = row * TW + col;
+          const bool in = inside(r0 + row, c0 + col);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int ch = 8 * nt + 2 * tq;
+            const float2 d = *reinterpret_cast<const float2*>(dm1 + dmi(pt, ch));
+            *reinterpret_cast<unsigned*>(g1s + pt * MS + ch) =
+                in ? pack2(acc[u][nt][2 * h] * d.x, acc[u][nt][2 * h + 1] * d.y) : 0u;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // m0 on the tile for dw1 (over mish'(p1), read by now): round(mish(x)),
+    // 0 outside the image
+    for (int i = tid; i < S::NT * CH; i += THREADS) {
+      const int pt = i / CH, ch = i % CH;
+      const int gr = r0 + pt / TW, gc = c0 + pt % TW;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (inside(gr, gc) && !(SKIP & 4)) {
+        v = *reinterpret_cast<const uint4*>(xb + ((size_t)gr * W + gc) * CIO + ch * 8);
+        v = make_uint4(act2(v.x), act2(v.y), act2(v.z), act2(v.w));
+      }
+      *reinterpret_cast<uint4*>(m0s + pt * CIO + ch * 8) = v;
+    }
+    // D on the tile, 32 output channels j at a time: dx = (g1 . w1^T)
+    // mish'(x) (+ dy)
+    for (int item = warp; item < S::MT * (CIO / 32); item += NWARPS) {
+      const int row = item % S::MT, j = item / S::MT;
+      const bf16* a_lane[2] = {g1s + (row * TW + la) * MS + lk, nullptr};
+      float acc[2][4][4];
+      gemm32_nb<false, 2, 1, false, MS>(acc, a_lane, w1s, [](int s) { return 16 * s; },
+                                        [j](int s) { return j * 32 * MS + 16 * s; }, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = g + 8 * h, gr = r0 + row, gc = c0 + col;
+        if (!inside(gr, gc)) continue;
+        const size_t o = ((size_t)gr * W + gc) * CIO;
+        const bf16* const dyp = dys + ((row + 2) * W2 + col + 2) * XS;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int ci = 32 * j + 8 * nt + 2 * tq;
+          const unsigned xv = (SKIP & 4) ? 0u : *reinterpret_cast<const unsigned*>(xb + o + ci);
+          float m_, d0, d1;
+          act_dact(lo_f(xv), m_, d0);
+          act_dact(hi_f(xv), m_, d1);
+          float v0 = acc[0][nt][2 * h] * d0, v1 = acc[0][nt][2 * h + 1] * d1;
+          if (residual) {
+            const unsigned dv = *reinterpret_cast<const unsigned*>(dyp + ci);
+            v0 += lo_f(dv);
+            v1 += hi_f(dv);
+          }
+          if (!(SKIP & 4)) *reinterpret_cast<unsigned*>(dxb + o + ci) = pack2(v0, v1);
+        }
+      }
+    }
+    __syncthreads();
+
+    // the weight and bias gradients over the tile's pixels in the image
+    if (!(SKIP & 8)) {
+      const int nr = min(TH, H - r0), nc = min(TW, W - c0);
+      {   // dw3, dw2 of tap `warp`: m(P + off) window at P + (ky, kx)
+        const int ky = warp / 3, kx = warp % 3;
+        const bf16* const m2p = m2s + ((2 + ky) * W3 + 2 + kx) * MS + 4 * cb;
+        const bf16* const g3p = g3s + (2 * W2 + 2) * MS + 8 * ob;
+        const bf16* const m1p = m1s + ((3 + ky) * W4 + 3 + kx) * MS + 4 * cb;
+        const bf16* const g2p = g2s + (W1 + 1) * MS + 8 * ob;
+        for (int pr = 0; pr < nr; ++pr)
+#pragma unroll 4
+          for (int pc = 0; pc < nc; ++pc) {
+            outer48(a3, m2p + (pr * W3 + pc) * MS, g3p + (pr * W2 + pc) * MS);
+            outer48(a2, m1p + (pr * W4 + pc) * MS, g2p + (pr * W1 + pc) * MS);
+          }
+      }
+      if (warp < 8) {
+        // dw4 (CM, CIO) row k and dw1 (CIO, CM) column k = tid / 8, at
+        // CIO / 8 channels from (tid % 8) CIO / 8
+        constexpr int NJ = CIO / 8;
+        const int k = tid >> 3, c8 = (tid & 7) * NJ;
+        float d4[NJ], d1[NJ];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) d4[j] = d1[j] = 0.f;
+        for (int pr = 0; pr < nr; ++pr)
+          for (int pc = 0; pc < nc; ++pc) {
+            const int pt = pr * TW + pc;
+            const float m3v = __bfloat162float(m3s[pt * MS + k]);
+            const float g1v = __bfloat162float(g1s[pt * MS + k]);
+            float dyf[NJ], m0f[NJ];
+            load_f(dys + ((pr + 2) * W2 + pc + 2) * XS + c8, dyf);
+            load_f(m0s + pt * CIO + c8, m0f);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              d4[j] = fmaf(m3v, dyf[j], d4[j]);
+              d1[j] = fmaf(m0f[j], g1v, d1[j]);
+            }
+          }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          pb[L::DW4 + k * CIO + c8 + j] += d4[j];
+          pb[L::DW1 + (c8 + j) * CM + k] += d1[j];
+        }
+      } else {
+        // the biases: lane owns channel `lane` of db1, db2, db3 and
+        // channels lane + 32 i of db4
+        float s1 = 0.f, s2 = 0.f, s3 = 0.f, s4[CIO / 32];
+#pragma unroll
+        for (int i = 0; i < CIO / 32; ++i) s4[i] = 0.f;
+        for (int pr = 0; pr < nr; ++pr)
+          for (int pc = 0; pc < nc; ++pc) {
+            s1 += __bfloat162float(g1s[(pr * TW + pc) * MS + lane]);
+            s2 += __bfloat162float(g2s[((pr + 1) * W1 + pc + 1) * MS + lane]);
+            s3 += __bfloat162float(g3s[((pr + 2) * W2 + pc + 2) * MS + lane]);
+#pragma unroll
+            for (int i = 0; i < CIO / 32; ++i)
+              s4[i] += __bfloat162float(dys[((pr + 2) * W2 + pc + 2) * XS + lane + 32 * i]);
+          }
+        pb[L::DB1 + lane] += s1;
+        pb[L::DB2 + lane] += s2;
+        pb[L::DB3 + lane] += s3;
+#pragma unroll
+        for (int i = 0; i < CIO / 32; ++i) pb[L::DB4 + lane + 32 * i] += s4[i];
+      }
+    }
+    __syncthreads();   // the next tile's band overwrites X
+  }
+
+  // dw3, dw2: this thread's sums over the block's tiles
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = warp * CM + 4 * cb + i;   // tap * 32 + ci
+    float4* const p3 = reinterpret_cast<float4*>(pb + L::DW3 + row * CM + 8 * ob);
+    float4* const p2 = reinterpret_cast<float4*>(pb + L::DW2 + row * CM + 8 * ob);
+    p3[0] = make_float4(a3[i][0], a3[i][1], a3[i][2], a3[i][3]);
+    p3[1] = make_float4(a3[i][4], a3[i][5], a3[i][6], a3[i][7]);
+    p2[0] = make_float4(a2[i][0], a2[i][1], a2[i][2], a2[i][3]);
+    p2[1] = make_float4(a2[i][4], a2[i][5], a2[i][6], a2[i][7]);
+  }
+}
+
+template <int CIO, int TH>
+int launch(const void* x, const void* dy, const void* w1, const void* b1, const void* w2,
+           const void* b2, const void* w3, const void* b3, const void* w4, void* dx,
+           void* part, int B, int H, int W, int residual, int nblk, cudaStream_t stream) {
+  using S = Tile<CIO, TH>;
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        convres_bwd_kernel<CIO, TH>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  convres_bwd_kernel<CIO, TH><<<nblk, THREADS, S::SMEM, stream>>>(
+      (const bf16*)x, (const bf16*)dy, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
+      (const float*)b2, (const bf16*)w3, (const float*)b3, (const bf16*)w4, (bf16*)dx,
+      (float*)part, B, H, W, residual);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// K3 on dtype T, then the in-order reduce of the blocks' partials
+template <int CIO>
+int launch_all(const void* x, const void* dy, const void* w1, const void* b1,
+               const void* w2, const void* b2, const void* w3, const void* b3,
+               const void* w4, void* dx, void* part, void* out, int B, int H, int W,
+               int residual, int nblk, int dtype, cudaStream_t stream) {
+  constexpr int TH = CIO == 128 ? 4 : 8;   // the bf16 tile's rows
+  const int err =
+      dtype == 1
+          ? tc::launch<CIO, TH>(x, dy, w1, b1, w2, b2, w3, b3, w4, dx, part, B, H, W,
+                                residual, nblk, stream)
+          : f32::launch_fma<float, CIO>(x, dy, w1, b1, w2, b2, w3, b3, w4, dx, part, B, H,
+                                        W, residual, nblk, stream);
+  if (err != 0) return err;
   const int n = Layout<CIO>::N;
   convres_bwd_reduce<<<(n + 255) / 256, 256, 0, stream>>>((const float*)part, nblk, n,
                                                          (float*)out);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_cio(const void* x, const void* dy, const void* w1, const void* b1,
-               const void* w2, const void* b2, const void* w3, const void* b3,
-               const void* w4, void* dx, void* part, void* out, int B, int H, int W,
-               int C, int residual, int nblk, cudaStream_t s) {
-  switch (C) {
-    case 32: return launch<T, 32>(x, dy, w1, b1, w2, b2, w3, b3, w4, dx, part, out, B, H, W, residual, nblk, s);
-    case 64: return launch<T, 64>(x, dy, w1, b1, w2, b2, w3, b3, w4, dx, part, out, B, H, W, residual, nblk, s);
-    case 128: return launch<T, 128>(x, dy, w1, b1, w2, b2, w3, b3, w4, dx, part, out, B, H, W, residual, nblk, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -449,17 +1007,26 @@ int convres_bwd_partial_size(int C) {
 // (C, 32); w2, w3 (3, 3, 32, 32) HWIO; w4 (32, C); all of x's type; b1,
 // b2, b3 (32) float32.  part: nblk partials of float32 workspace; out:
 // one float32 partial, the eight gradients.  C in {32, 64, 128}; nblk
-// blocks walk over the 8x8 output tiles.
+// blocks walk over the output tiles.  bfloat16: x and dy 16-byte
+// aligned.
 int convres_bwd(const void* x, const void* dy, const void* w1, const void* b1,
                 const void* w2, const void* b2, const void* w3, const void* b3,
                 const void* w4, void* dx, void* part, void* out, int B, int H, int W,
                 int C, int residual, int nblk, int dtype, void* stream) {
   if (nblk < 1 || B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return launch_cio<__nv_bfloat16>(x, dy, w1, b1, w2, b2, w3, b3, w4, dx, part, out, B,
-                                     H, W, C, residual, nblk, (cudaStream_t)stream);
-  return launch_cio<float>(x, dy, w1, b1, w2, b2, w3, b3, w4, dx, part, out, B, H, W, C,
-                           residual, nblk, (cudaStream_t)stream);
+  if ((long long)H * W * C >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && (!aligned16(x) || !aligned16(dy)))
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (C) {
+    case 32: return launch_all<32>(x, dy, w1, b1, w2, b2, w3, b3, w4, dx, part, out, B, H,
+                                   W, residual, nblk, dtype, s);
+    case 64: return launch_all<64>(x, dy, w1, b1, w2, b2, w3, b3, w4, dx, part, out, B, H,
+                                   W, residual, nblk, dtype, s);
+    case 128: return launch_all<128>(x, dy, w1, b1, w2, b2, w3, b3, w4, dx, part, out, B,
+                                     H, W, residual, nblk, dtype, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

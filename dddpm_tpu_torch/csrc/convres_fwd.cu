@@ -76,7 +76,8 @@
 // kernel out, by bit: 1 the products (mma), 2 the mish (identity), 4 the
 // producers' global traffic (the band loads and the stores of o).  Only
 // the ablation probe (probes/convres_ablation.py) sets it; its kernels
-// compute garbage.
+// compute garbage.  The fragment helpers (gemm32, act2, ...) are
+// csrc/convres_sm90.cuh's, shared with K3.
 //
 // C interface: plain C entry, loaded with ctypes.  It launches on the
 // stream it is given, allocates nothing, does not synchronise and
@@ -85,14 +86,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mish_sm90.cuh"  // mish (ex2 + rcp)
-#include "mma_sm90.cuh"   // cp_async16, ldmatrix_x4(_trans), mma_bf16
+#include "convres_sm90.cuh"  // bf16, CM, MS, SKIP, pack2, act, act2, gemm32(_n)
+#include "mish_sm90.cuh"     // mish (ex2 + rcp)
+#include "mma_sm90.cuh"      // cp_async16, ldmatrix_x4(_trans), mma_bf16
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int CM = 32;        // mid channels
 
 // ---------------------------------------------------------------------
 // float32: the FMA kernel
@@ -279,11 +277,6 @@ constexpr int NPW = 2;          // producer warps a group: x in, o out
 constexpr int GC = 32 * NCW, GP = 32 * NPW, GT = GC + GP;   // threads a group
 constexpr int CONSUMERS = GROUPS * GC;
 constexpr int THREADS = GROUPS * GT;
-constexpr int MS = CM + 8;      // bf16 a row of m1, m2, w1, w2, w3 (80 bytes)
-#ifndef CONVRES_SKIP
-#define CONVRES_SKIP 0
-#endif
-constexpr int SKIP = CONVRES_SKIP;
 // named barriers of group g (0 is __syncthreads), at 1 + 5 g + the
 // role: XFULL, its band holds tile k's raw x and its staging buffer the
 // residual; BFREE, its consumers are done with the band (G1); YFULL,
@@ -324,87 +317,6 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 }
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ unsigned pack2(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-// the bf16 kernel's activation: mish (the identity under SKIP & 2)
-__device__ __forceinline__ float act(float v) { return (SKIP & 2) ? v : mish(v); }
-
-// act of a bf16 pair, rounded back to a bf16 pair
-__device__ __forceinline__ unsigned act2(unsigned v) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-  return pack2(act(f.x), act(f.y));
-}
-
-// c += a b on the tensor cores (not under SKIP & 1)
-__device__ __forceinline__ void mma(float c[4], const unsigned a[4], unsigned b0,
-                                    unsigned b1) {
-  if (!(SKIP & 1)) mma_bf16(c, a, b0, b1);
-}
-
-// One pass of a warp over NU m16 tiles (mt, and mt + NCW where NU is
-// 2), N = 32: acc[u][nt] = A . B over KSTEPS k16 steps.  a_lane[u] is
-// this lane's A row address (its pixel, its k half) and a_off(s) the
-// step's constant offset from it; B's step s is rows [s * 16, s * 16 +
-// 16) of a [k][32] matrix of MS-element rows.  With MISH, the A
-// fragments are mish(A), rounded (G1's m0).  The steps are unrolled, so
-// that every offset is a constant, and the fragments of step s + 1 are
-// loaded before step s's products are issued (the helpers' asm is
-// volatile, so issue order is source order), so that the products wait
-// on the sums alone.
-template <bool MISH, int KSTEPS, int NU, typename AOff>
-__device__ __forceinline__ void gemm32_n(float (&acc)[2][4][4],
-                                         const bf16* const (&a_lane)[2],
-                                         const bf16* w, AOff a_off, int lane) {
-  static_assert(KSTEPS % 2 == 0, "steps in pairs");
-#pragma unroll
-  for (int u = 0; u < 2; ++u)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[u][nt][e] = 0.f;
-  const bf16* b_lane = w + (lane & 15) * MS + (lane >> 4) * 8;
-  unsigned b[2][2][4], a[2][NU][4];   // [step parity]
-  auto load = [&](int s, unsigned (&bs)[2][4], unsigned (&as)[NU][4]) {
-    ldmatrix_x4_trans(bs[0], b_lane + s * 16 * MS);
-    ldmatrix_x4_trans(bs[1], b_lane + s * 16 * MS + 16);
-#pragma unroll
-    for (int u = 0; u < NU; ++u) ldmatrix_x4(as[u], a_lane[u] + a_off(s));
-  };
-  auto mmas = [&](const unsigned (&bs)[2][4], unsigned (&as)[NU][4]) {
-#pragma unroll
-    for (int u = 0; u < NU; ++u) {
-      if (MISH) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) as[u][r] = act2(as[u][r]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        mma(acc[u][nt], as[u], bs[nt / 2][2 * (nt % 2)], bs[nt / 2][2 * (nt % 2) + 1]);
-    }
-  };
-  load(0, b[0], a[0]);
-#pragma unroll
-  for (int s = 0; s < KSTEPS; s += 2) {
-    load(s + 1, b[1], a[1]);
-    mmas(b[0], a[0]);
-    if (s + 2 < KSTEPS) load(s + 2, b[0], a[0]);
-    mmas(b[1], a[1]);
-  }
-}
-
-// gemm32_n over two m16 tiles where `two` (warp-uniform), else one
-template <bool MISH, int KSTEPS, typename AOff>
-__device__ __forceinline__ void gemm32(float (&acc)[2][4][4], const bf16* const (&a_lane)[2],
-                                       bool two, const bf16* w, AOff a_off, int lane) {
-  if (two)
-    gemm32_n<MISH, KSTEPS, 2>(acc, a_lane, w, a_off, lane);
-  else
-    gemm32_n<MISH, KSTEPS, 1>(acc, a_lane, w, a_off, lane);
 }
 
 // scale: 0 none, 1 'up' (2x nearest), 2 'down' (2x2 mean).

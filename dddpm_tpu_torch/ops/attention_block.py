@@ -6,7 +6,9 @@ LayerNorm (biased variance, eps added to the std), 4 heads of 32, and a
 softmax over tokens of k clamped at K_CLAMP with no max subtraction.
 
 On a CUDA tensor with more than PLAIN_PATH_MAX_TOKENS tokens it runs as
-two hand-written kernels (csrc/attention_block.cu):
+two hand-written kernels (csrc/attention_block.cu), which take every
+width that fused_width_ok passes (C % 32 == 0, C <= 256) and refuse
+others:
 
   pass A  (attention_ctx):  ctx = blockdiag(exp(k)^T v / sum exp(k))
   fold    (PyTorch):        W_eff = Wq . ctx . Wout, one batched einsum,
@@ -41,7 +43,9 @@ HIDDEN = 128
 DIM_HEAD = 32
 TOKEN_TILE = 64           # TN in csrc/attention_block.cu
 FOLD_ROWS = 16            # FOLD_ROWS in csrc/attention_block.cu
-ONE_PASS_WIDTHS = (32, 64, 128, 256)
+# the widest channel count the kernels take (ln_tile's 8 values a lane);
+# every multiple of 32 up to it is instantiated (DDDPM_WIDTHS)
+MAX_WIDTH = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the one-pass route instead of the two passes, as the JAX package's
@@ -103,16 +107,25 @@ def out_reference(x, g, b, w_eff, b_out):
     return (x.float() + ln @ w_eff.float() + b_out).to(x.dtype)
 
 
+def fused_width_ok(c: int) -> bool:
+    """Whether the kernels (both passes and the one-pass kernel) take
+    channel width c.  JAX's kernel takes any width; a wider one raises
+    here until K1 is widened (ROADMAP.md section 3)."""
+    return c % 32 == 0 and 0 < c <= MAX_WIDTH
+
+
 def _check(x, g, b, *mats):
+    c = x.shape[-1]
+    # the width first, so that the refusal reads the same on any device
+    if not fused_width_ok(c):
+        raise ValueError(f"channel width {c} unsupported: the kernels take "
+                         f"C % 32 == 0, C <= {MAX_WIDTH}")
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
     if x.ndim != 3 or not x.is_contiguous():
         raise ValueError("x must be a contiguous (B, N, C) tensor")
-    c = x.shape[-1]
-    if c % 32 or c > 256:
-        raise ValueError(f"channel width {c} unsupported (C % 32, C <= 256)")
     for v in (g, b):
         if v.shape != (c,) or v.dtype != torch.float32 or v.device != x.device:
             raise ValueError("g, b must be float32 (C,) tensors on x's device")
@@ -184,8 +197,6 @@ def attention_1pass(x, g, b, w_kv, w_q, w_out, b_out):
     LN(x) @ w_kv and the fold in f32, rounded to x's dtype."""
     _check(x, g, b, w_kv, w_q, w_out)
     bsz, n, c = x.shape
-    if c not in ONE_PASS_WIDTHS:
-        raise ValueError(f"one-pass kernel takes C in {ONE_PASS_WIDTHS}, got {c}")
     for name, m, shape in (("w_kv", w_kv, (c, 2 * HIDDEN)),
                            ("w_q", w_q, (c, HIDDEN)), ("w_out", w_out, (HIDDEN, c))):
         if tuple(m.shape) != shape:
@@ -290,10 +301,11 @@ def attention_block(x, g, b, w_qkv, w_out, b_out, dim_head: int = DIM_HEAD,
     b_out: (C,) f32.  On a CPU tensor the plain version runs.  On a CUDA
     tensor with N > PLAIN_PATH_MAX_TOKENS the kernels run (the one-pass
     kernel when FORCE_ONE_PASS is set); any input they do not take
-    raises.  inplace=True lets pass B write y over x (the one-pass
-    kernel always writes a new tensor); it is allowed only when no
-    gradient is recorded (torch.no_grad()), since autograd would need
-    the x that it overwrites."""
+    (a width that fused_width_ok refuses among them) raises.
+    inplace=True lets pass B write y over x (the one-pass kernel always
+    writes a new tensor); it is allowed only when no gradient is recorded
+    (torch.no_grad()), since autograd would need the x that it
+    overwrites."""
     if x.device.type == "cpu" or x.shape[1] <= PLAIN_PATH_MAX_TOKENS:
         return reference_impl(x, g, b, w_qkv, w_out, b_out, dim_head)
     if w_out.shape[0] != HIDDEN or dim_head != DIM_HEAD:

@@ -103,8 +103,10 @@ def library(defines=()):
     return lib
 
 
-def _lib_bwd():
-    lib = _build.load("convres_bwd")
+def library_bwd(defines=()):
+    """csrc/convres_bwd.cu's library (built with `defines`, see
+    _build.load), its C entries typed."""
+    lib = _build.load("convres_bwd", tuple(defines))
     if lib.convres_bwd.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.convres_bwd.argtypes = [vp] * 12 + [i] * 7 + [vp]
@@ -163,24 +165,38 @@ def _kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, residual, scale):
     return y
 
 
+def _bwd_tile(c: int, dtype) -> tuple:
+    """K3's output tile (rows, columns): bf16 8 x 16 (4 x 16 at 128
+    channels), f32 8 x 8 (csrc/convres_bwd.cu)."""
+    if dtype == torch.bfloat16:
+        return (4 if c == 128 else 8), 16
+    return 8, 8
+
+
 def _bwd_blocks(x) -> int:
     """Blocks of K3: one per SM (each holds ~200 KB of shared memory),
-    never more than there are 8x8 tiles."""
-    bsz, h, w, _ = x.shape
-    tiles = bsz * -(-h // 8) * -(-w // 8)
+    never more than there are tiles."""
+    bsz, h, w, c = x.shape
+    th, tw = _bwd_tile(c, x.dtype)
+    tiles = bsz * -(-h // th) * -(-w // tw)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     return max(1, min(tiles, sms))
 
 
 def _bwd_kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, dy, residual) -> tuple:
     """K3: dx in x's dtype and the eight weight and bias gradients in
-    float32, in the shapes of w1..b4 (b4's gradient is dy's sum)."""
+    float32, in the shapes of w1..b4 (b4's gradient is dy's sum).
+    Raises on what it does not take, a bfloat16 x or dy that is not
+    16-byte aligned included (its bands come in 16-byte pieces)."""
     _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4)
     if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
         raise ValueError("dy must be contiguous and match x")
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or dy.data_ptr() % 16):
+        raise ValueError("the backward kernel needs 16-byte aligned bfloat16 "
+                         "x and dy")
     bsz, h, w, c = x.shape
     cm = MID_CHANNELS
-    lib = _lib_bwd()
+    lib = library_bwd()
     n = lib.convres_bwd_partial_size(c)
     nblk = _bwd_blocks(x)
     part = torch.empty((nblk, n), dtype=torch.float32, device=x.device)
@@ -222,6 +238,8 @@ class _ConvResBlockFn(torch.autograd.Function):
         if x.device.type == "cpu":
             grads = backward_reference(*saved, dy, ctx.residual)
         else:
+            if dy.data_ptr() % 16:   # a view into another gradient
+                dy = dy.clone()
             grads = _bwd_kernel(*saved, dy, ctx.residual)
         # each gradient in its input's dtype, in the input's (view's) shape
         grads = [g.to(t.dtype) for g, t in zip(grads, saved)]

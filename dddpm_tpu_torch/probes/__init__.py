@@ -10,9 +10,10 @@ variant at the TPU probe's default size:
     python -m dddpm_tpu_torch.probes.cmajor_conv          # P4
 
 On CPU tensors the wrappers take the plain versions (the tests use
-them); `main()` needs a card and raises without one.  Two ablations
+them); `main()` needs a card and raises without one.  Three ablations
 time a shipped kernel with parts of it compiled out (nothing checked):
 
-    python -m dddpm_tpu_torch.probes.winograd_ablation    # K6
-    python -m dddpm_tpu_torch.probes.convres_ablation     # K2, bf16
+    python -m dddpm_tpu_torch.probes.winograd_ablation      # K6
+    python -m dddpm_tpu_torch.probes.convres_ablation       # K2, bf16
+    python -m dddpm_tpu_torch.probes.convres_bwd_ablation   # K3, bf16
 """

@@ -77,10 +77,10 @@ def test_a_header_edit_names_another_library(build_dir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["conv3x3", "winograd", "probe_cmajor_conv",
-                                  "convres_fwd"])
+                                  "convres_fwd", "convres_bwd"])
 def test_tensor_core_kernels_share_one_copy_of_the_fragment_helpers(name):
-    """K5, K6, P4 and K2 include csrc/mma_sm90.cuh and define none of its
-    helpers themselves, so they cannot drift apart."""
+    """K5, K6, P4, K2 and K3 include csrc/mma_sm90.cuh and define none of
+    its helpers themselves, so they cannot drift apart."""
     source = (_build.CSRC / f"{name}.cu").read_text()
     assert '#include "mma_sm90.cuh"' in source
     for helper in ("cp_async16(", "ldmatrix_x4(", "ldmatrix_x4_trans(",
@@ -98,3 +98,29 @@ def test_mish_kernels_share_one_copy_of_the_fast_mish(name):
         assert f"float {helper}" not in source, helper
     for slow in ("expf(", "log1pf(", "tanhf("):
         assert slow not in source, slow
+
+
+@pytest.mark.parametrize("name", ["convres_fwd", "convres_bwd"])
+def test_convres_kernels_share_one_copy_of_the_gemm_helpers(name):
+    """K2 and K3 include csrc/convres_sm90.cuh (the implicit-GEMM pass and
+    the bf16-pair helpers) and define none of them themselves."""
+    source = (_build.CSRC / f"{name}.cu").read_text()
+    assert '#include "convres_sm90.cuh"' in source
+    for helper in ("unsigned pack2(", "unsigned act2(", "void gemm32_nb(",
+                   "void gemm32_n(", "void gemm32(", "void mma(",
+                   "void mish_dmish("):
+        assert helper not in source, helper
+
+
+def test_build_all_starts_every_library_before_waiting(monkeypatch):
+    """build_all starts every nvcc before it waits on the first, so the
+    sources compile in parallel."""
+    events = []
+    monkeypatch.setattr(_build, "_start",
+                        lambda n: events.append(("start", n)) or n)
+    monkeypatch.setattr(_build, "_finish",
+                        lambda n, st: events.append(("finish", n, st)))
+    _build.build_all(["convres_fwd", "convres_bwd"])
+    assert events == [("start", "convres_fwd"), ("start", "convres_bwd"),
+                      ("finish", "convres_fwd", "convres_fwd"),
+                      ("finish", "convres_bwd", "convres_bwd")]

@@ -52,7 +52,9 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bsz,n,c", [(2, 1000, 32), (3, 4096, 128),
-                                     (1, 1024, 256), (2, 777, 64)])
+                                     (1, 1024, 256), (2, 777, 64),
+                                     (2, 1000, 96), (1, 1024, 160),
+                                     (1, 777, 192), (2, 600, 224)])
 def test_attention_kernels_match_plain(card, dtype, bsz, n, c):
     gen = torch.Generator(device=card).manual_seed(n + c)
     r = lambda *s: torch.randn(*s, generator=gen, device=card)
@@ -145,10 +147,12 @@ def _convres_args(card, bsz, h, w, c, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bsz,h,w,c", [(2, 32, 64, 64), (1, 40, 36, 32),
-                                       (1, 16, 16, 128), (3, 8, 8, 64)])
+                                       (1, 16, 16, 128), (3, 8, 8, 64),
+                                       (1, 24, 40, 64)])
 def test_convres_backward_kernel_matches_plain(card, dtype, bsz, h, w, c):
     """K3 (dx and the eight dW/db) against backward_reference, with b1/b2
-    shifted by +2 so that a halo slip shows; 40x36 leaves partial tiles."""
+    shifted by +2 so that a halo slip shows; 40x36 leaves partial tiles,
+    24x40 partial bf16 tiles (8 x 16 px) in both directions."""
     args, gen = _convres_args(card, bsz, h, w, c, dtype, h * w + c + 1)
     dy = torch.randn(bsz, h, w, c, generator=gen, device=card).to(dtype)
     for residual in (True, False):
@@ -158,6 +162,36 @@ def test_convres_backward_kernel_matches_plain(card, dtype, bsz, h, w, c):
             assert g.shape == t.shape
             _close(g, t, dtype)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_convres_bwd_check_fails_mirrored_taps(card, dtype):
+    """The check above sees a transposed 3x3 that forgets its mirror: K3
+    given w3 with its taps mirrored (w3[8 - k] for w3[k]) misses the
+    plain version on the true w3 by more than 5x the tolerance."""
+    args, gen = _convres_args(card, 2, 32, 48, 64, dtype, 19)
+    dy = torch.randn(2, 32, 48, 64, generator=gen, device=card).to(dtype)
+    mirrored = (*args[:5], args[5].flip(0).flip(1).contiguous(), *args[6:])
+    want = cr.backward_reference(*args, dy, True)
+    for g, t in zip(cr._bwd_kernel(*args, dy, True), want):
+        _close(g, t, dtype)
+    got = cr._bwd_kernel(*mirrored, dy, True)
+    miss = max(float((g.float() - t.float()).abs().max()) / _tol(t, dtype)
+               for g, t in zip(got, want))
+    assert miss > 5, miss
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_convres_bwd_is_deterministic(card, dtype):
+    """Two launches on the same inputs give the same bits: dx and every
+    weight and bias gradient (per-block partials summed in block order,
+    no atomics), at a shape where each block walks several tiles."""
+    args, gen = _convres_args(card, 3, 128, 128, 64, dtype, 23)
+    dy = torch.randn(3, 128, 128, 64, generator=gen, device=card).to(dtype)
+    first = cr._bwd_kernel(*args, dy, True)
+    second = cr._bwd_kernel(*args, dy, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("scale", [None, "up", "down"])
@@ -226,13 +260,13 @@ def test_kernel_paths_refuse_what_they_cannot_take(card):
         la.linear_attention(*(z(1, 64, 96),) * 3)
     with pytest.raises(ValueError):
         la.linear_attention(*(z(1, 64, 64),) * 3, dim_head=16)
-    # K1c: a wrong dtype, an unsupported width (96)
+    # K1c: a wrong dtype, an unsupported width (288: above 256)
     with pytest.raises(TypeError):
         ab.attention_1pass(z(1, 1024, 64, dt=torch.float16), z(64), z(64),
                            z(64, 256), z(64, 128), z(128, 64), z(64))
     with pytest.raises(ValueError):
-        ab.attention_1pass(z(1, 1024, 96), z(96), z(96), z(96, 256), z(96, 128),
-                           z(128, 96), z(96))
+        ab.attention_1pass(z(1, 1024, 288), z(288), z(288), z(288, 256),
+                           z(288, 128), z(128, 288), z(288))
 
 
 def _rand(card, seed):
@@ -389,7 +423,9 @@ def test_linear_attention_gradients_on_card(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bsz,n,c", [(2, 1000, 32), (3, 4096, 128),
                                      (1, 1024, 256), (2, 777, 64),
-                                     (8, 16384, 128)])
+                                     (8, 16384, 128), (1, 1024, 96),
+                                     (2, 1000, 160), (1, 777, 192),
+                                     (2, 600, 224)])
 def test_attention_one_pass_matches_plain(card, dtype, bsz, n, c, monkeypatch):
     """K1c against its plain version and against the two-pass route, and
     attention_block under FORCE_ONE_PASS takes it (and not the passes)."""
@@ -646,3 +682,41 @@ def test_resample_selector_on_card(card, value):
     torch.cuda.synchronize()
     assert (cr.LAUNCHES["convres_fwd"] > before) is value
     assert x.shape == (1, 3, 256, 256) and torch.isfinite(x).all()
+
+
+def test_attention_width_on_card(card):
+    """A UNet 160 channels wide (four attention sites of 160 channels above
+    512 tokens, a width K1 took only from this change on) runs the K1a/K1b
+    kernels with use_pallas_attention True and matches the same UNet with
+    it False; a site of 320 channels (wider than K1 takes) raises."""
+    outs = []
+    for value in (True, False):
+        cfg = dict(model="dddpm", dataset="synthetic", image_size=256, T=50,
+                   loss_type="simple", beta_schedule="linear",
+                   loss_flat="sum", unet_chan=160, unet_dims=(1, 1),
+                   unet_dropout=0.0, unet_in=8, n_downsamples=1,
+                   d_mode="convolutional_res", u_mode="convolutional_res",
+                   d_dropout=0, d_chans=64, d_n_blocks=2, u_n_blocks=2,
+                   ae_loss=True, t_rec_max=5, force_latent=True,
+                   compute_dtype="bfloat16", use_pallas_attention=value)
+        net, _, init_fn, cfg = build_model(cfg, device=card)
+        init_fn(0)
+        assert cfg["use_pallas_attention"] is value
+        gen = torch.Generator(device=card).manual_seed(3)
+        z = torch.randn(1, 8, 128, 128, generator=gen, device=card)
+        before = dict(ab.LAUNCHES)
+        with torch.no_grad():
+            outs.append(net.unet(z, torch.tensor([40], device=card)))
+        torch.cuda.synchronize()
+        launched = {k: ab.LAUNCHES[k] - before[k] for k in before}
+        want = 4 if value else 0
+        assert launched == {"attn_ctx": want, "attn_out": want,
+                            "attn_1pass": 0}, launched
+        del net
+    assert torch.isfinite(outs[0]).all()
+    _close(outs[0], outs[1], torch.bfloat16)
+    r = _rand(card, 320)
+    x = r(1, 1024, 320).to(torch.bfloat16)
+    with torch.no_grad(), pytest.raises(ValueError, match="channel width 320"):
+        ab.attention_block(x, r(320), r(320), r(320, 384).to(torch.bfloat16),
+                           r(128, 320).to(torch.bfloat16), r(320))
