@@ -10,8 +10,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3. holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 and in f32 (TF32 off), and times both
    with CUDA events: the attention block and the ConvResBlock forward at
-   the x2 sampling shapes (B = 8; K2's ptxas line first, no spill
-   allowed), the attention block and the ConvResBlock backward (K3's
+   the x2 sampling shapes (B = 8; K1a's and K1b's bf16 ptxas lines and
+   K2's first, no spill allowed; K1a and K1b also replayed from a CUDA
+   graph; then both passes and K1c at C = 40, 512 and 1024 against their
+   plain versions), the attention block and the ConvResBlock backward (K3's
    ptxas line first, no spill allowed) and forward at the x3 training
    shapes; K2's and K3's bf16 times logged per shape, eager (the kernels
    line's `ms`) and replayed from a CUDA graph (`graph_ms`: its kernels
@@ -20,9 +22,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (build_model -> init_fn -> generate_samples, a chain cut to
    CHAIN_STEPS steps, then p_sample_chain over ts = [2, 1, 0]) with the
    launch counters zeroed just before and read just after, and checks
-   the outputs, profiles three chain steps (device time by kernel
-   category, idle share), and runs one short f32 chain on the card
-   against the plain path on the CPU;
+   the outputs, profiles three chain steps at B and two at the bulk
+   sampler's B = 192 (device time by kernel category, idle share, K1's
+   share), and runs one short f32 chain on the card against the plain
+   path on the CPU;
 5. drives the x3 dDDPM training path (setup_trainer -> train(), the
    config of bench.py:run_train, B = 32, accumulation x2, bf16, on
    synthetic 256^2 data) for TRAIN_STEPS steps with the counters zeroed
@@ -62,7 +65,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    its plain version on the card, then times it (P4 beside cuDNN on
    NCHW, the entry's `library_ms`, and on channels_last,
    `library_cl_ms`); then K3's ablation (probes/convres_bwd_ablation.py:
-   K3 with parts compiled out, timed at the x3 training shapes).
+   K3 with parts compiled out, timed at the x3 training shapes) and
+   K1a/K1b's (probes/attention_ablation.py: the same at the x2 sites,
+   then the tensor-core and the FMA kernels in bf16 at 512 channels,
+   each checked against the plain versions, then timed).
 
 The last three lines are a JSON object with the kernels' numbers (one
 entry per kernel and path, its launches counted on that path's own run),
@@ -86,6 +92,7 @@ from dddpm_tpu_torch.ops import convres as cr
 from dddpm_tpu_torch.ops import linear_attention as la
 from dddpm_tpu_torch.ops import winograd as wg
 from dddpm_tpu_torch.ops.math import mish
+from dddpm_tpu_torch.probes import attention_ablation as k1_ablation
 from dddpm_tpu_torch.probes import attention_ceiling as probe_p1
 from dddpm_tpu_torch.probes import attention_writeback as probe_p2
 from dddpm_tpu_torch.probes import cmajor_conv as probe_p4
@@ -287,7 +294,13 @@ def attn_inputs(n, c, dtype, gen, bsz=B):
 def phase_attention(results):
     """K1 at the x2 sampling sites (B = 8; per chain step: five sites) and
     at the x3 training site (B = 32, N = 1024, C = 128; per train step:
-    one launch per micro-batch)."""
+    one launch per micro-batch).  The ptxas lines of the bf16 kernels
+    (mma.sync) first, no spill allowed; in bf16 each pass also replayed
+    from a CUDA graph (`graph_ms`)."""
+    _build.build_all(["attention_block"])
+    ptxas_check("attention_block", "ctx_mma_kernel")   # no kernel of it spills
+    assert any("out_mma_kernel" in k["kernel"]
+               for k in _build.ptxas_report("attention_block"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     sites = [(n, c, B, "x2_sample", ATTN_SITES.count((n, c)))
              for n, c in sorted(set(ATTN_SITES), reverse=True)]
@@ -320,12 +333,53 @@ def phase_attention(results):
             for name, (kern, plain, err) in timings.items():
                 ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 20)
                 bnd, by = bound_ms(costs[name], dtype)
+                gms = graph_ms(kern, 20) if dtype == torch.bfloat16 else None
+                graph = "" if gms is None else f" ({gms * 1e3:.1f} from a CUDA graph)"
                 log(f"    {name} B={bsz} N={n} C={c} {dtype}: kernel "
-                    f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-                    f"{bnd * 1e3:.1f} us ({by})")
+                    f"{ms * 1e3:.1f} us{graph}, plain {plain_ms * 1e3:.1f} us, "
+                    f"bound {bnd * 1e3:.1f} us ({by})")
                 if dtype == torch.bfloat16:
                     accumulate(results, name, path, per_step, ms, plain_ms,
-                               bnd, costs[name], err)
+                               bnd, costs[name], err, graph_ms=gms)
+    for path, what in (("x2_sample", f"x2 chain step at B={B}, five sites"),
+                       ("x3_train", f"x3 train step, B={B_TRAIN} x 2")):
+        for name in ("attn_ctx", "attn_out"):
+            r = results[(name, path)]
+            log(f"  {name}, {what}, bf16: kernel {r['ms']:.4f} ms eager, "
+                f"{r['graph_ms']:.4f} from CUDA graphs, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"[{card_line()}]")
+
+
+# widths beside the x2 sites': no 16-byte rows (20 is in the card tests),
+# K and N padded (40), weights streamed in K-slabs and pass B's output
+# in column slabs (512, 1024)
+ATTN_WIDTHS = (40, 512, 1024)
+
+
+def phase_attention_widths():
+    """Both passes and K1c against their plain versions at ATTN_WIDTHS
+    (B = 2, N = 1000), bf16 and f32; pass B also in place."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in ATTN_WIDTHS:
+            x, g, b, w_qkv, w_out, b_out = attn_inputs(1000, c, dtype, gen, 2)
+            w_q, w_k, w_v = (w_qkv.reshape(c, 3, ab.HIDDEN)[:, i].contiguous()
+                             for i in range(3))
+            w_kv = torch.cat([w_k, w_v], dim=1).contiguous()
+            ctx_ref = ab.ctx_reference(x, g, b, w_kv)
+            check_close(f"width {c} {dtype} attn_ctx", ab.attention_ctx(x, g, b, w_kv),
+                        ctx_ref, dtype)
+            w_eff = ab.fold_w_eff(w_q, ctx_ref, w_out, dtype)
+            want = ab.out_reference(x, g, b, w_eff, b_out)
+            check_close(f"width {c} {dtype} attn_out",
+                        ab.attention_out(x, g, b, w_eff, b_out), want, dtype)
+            y = x.clone()
+            check_close(f"width {c} {dtype} attn_out in place",
+                        ab.attention_out(y, g, b, w_eff, b_out, out=y), want, dtype)
+            check_close(f"width {c} {dtype} attn_1pass",
+                        ab.attention_1pass(x, g, b, w_kv, w_q, w_out, b_out),
+                        ab.one_pass_reference(x, g, b, w_qkv, w_out, b_out), dtype)
 
 
 def convres_inputs(h, w, dtype, gen, bsz=B):
@@ -526,6 +580,7 @@ def _category(name: str) -> str:
     for key, cat in (("lin_", "K4 linear attention"),
                      ("block_1p", "K1c attn_1pass"),
                      ("ctx_partial", "K1a attn_ctx"), ("ctx_reduce", "K1a attn_ctx"),
+                     ("ctx_mma", "K1a attn_ctx"), ("out_mma", "K1b attn_out"),
                      ("out_kernel", "K1b attn_out"),
                      ("conv3x3_kernel", "K5 conv3x3"),
                      ("winograd_kernel", "K6 winograd"),
@@ -558,7 +613,7 @@ def device_profile(run, steps: int, label: str):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         log(f"profile, {label}: the profiler saw no device time (not measured)")
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, (cur_s, cur_e) = 0.0, spans[0]
     for s_, e_ in spans[1:]:
@@ -586,15 +641,29 @@ def device_profile(run, steps: int, label: str):
     log("  top kernels:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {us / 1e3 / steps:7.3f} ms/step  {name[:100]}")
+    return by_cat, total
+
+
+# the main path's batch: bench.py:_sample_config(192), the bulk sampler
+B_BULK = 192
 
 
 def phase_profile(process, steps: int = 3):
-    """Where a chain step's device time goes, over `steps` steps at B."""
-    z = process.init_latent(B, seed=11)
-    ts = list(range(900, 900 - steps, -1))
-    process.p_sample_chain(z, ts, seed=11)
-    device_profile(lambda: process.p_sample_chain(z, ts, seed=11), steps,
-                   f"{steps} chain steps at B={B} (bf16)")
+    """Where a chain step's device time goes, over `steps` steps at B and
+    over 2 steps at the bulk sampler's B_BULK; K1's share of each."""
+    for bsz, n in ((B, steps), (B_BULK, 2)):
+        z = process.init_latent(bsz, seed=11)
+        ts = list(range(900, 900 - n, -1))
+        process.p_sample_chain(z, ts, seed=11)
+        prof = device_profile(lambda: process.p_sample_chain(z, ts, seed=11), n,
+                              f"{n} chain steps at B={bsz} (bf16)")
+        if prof is not None:
+            by_cat, total = prof
+            k1 = sum(by_cat.get(k, 0.0) for k in ("K1a attn_ctx", "K1b attn_out"))
+            log(f"  K1 (K1a + K1b) at B={bsz}: {k1 / 1e3 / n:.3f} ms/step, "
+                f"{k1 / total:.2%} of device time")
+        del z
+        torch.cuda.empty_cache()
 
 
 def phase_against_cpu(net_bf16):
@@ -1112,6 +1181,12 @@ def phase_probes(results):
     # builds its variants, one nvcc each, all at once)
     log("--- dddpm_tpu_torch.probes.convres_bwd_ablation ---")
     k3_ablation.main([])
+    # K1a / K1b likewise, at the x2 sites; then, checked against the
+    # plain versions, the two bf16 routes at the 512-channel sites: the
+    # shipped tensor-core kernels (weights streamed in K-slabs) and the
+    # FMA kernels
+    log("--- dddpm_tpu_torch.probes.attention_ablation ---")
+    k1_ablation.main([])
     for name in names:
         assert launched[name] > 0, (name, launched)
         h = heads[name]
@@ -1146,6 +1221,7 @@ def main() -> int:
 
     results: dict = {}
     phase_attention(results)
+    phase_attention_widths()
     phase_convres(results)
     phase_convres_bwd(results)
     net, process = phase_main_path(results)

@@ -1,7 +1,8 @@
 // Fragment helpers for the tensor-core kernels (sm_90a): cp.async,
 // ldmatrix and mma.sync.m16n8k16 with bf16 operands and f32 sums.
-// Included by winograd.cu (K6), conv3x3.cu (K5), convres_fwd.cu (K2) and
-// probe_cmajor_conv.cu (P4), so that they use one copy of each.
+// Included by winograd.cu (K6), conv3x3.cu (K5), convres_fwd.cu (K2),
+// convres_bwd.cu (K3, through convres_sm90.cuh), attention_block.cu (K1a,
+// K1b) and probe_cmajor_conv.cu (P4), so that they use one copy of each.
 #pragma once
 
 #include <cuda_runtime.h>

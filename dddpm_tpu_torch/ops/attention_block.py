@@ -6,26 +6,29 @@ LayerNorm (biased variance, eps added to the std), 4 heads of 32, and a
 softmax over tokens of k clamped at K_CLAMP with no max subtraction.
 
 On a CUDA tensor with more than PLAIN_PATH_MAX_TOKENS tokens it runs as
-two hand-written kernels (csrc/attention_block.cu), which take every
-width that fused_width_ok passes (C % 32 == 0, C <= 256) and refuse
-others:
+two hand-written kernels (csrc/attention_block.cu), at any channel
+width C:
 
   pass A  (attention_ctx):  ctx = blockdiag(exp(k)^T v / sum exp(k))
   fold    (PyTorch):        W_eff = Wq . ctx . Wout, one batched einsum,
                             as the JAX package leaves it to XLA
   pass B  (attention_out):  y = x + LN(x) @ W_eff + b_out
 
-or, when FORCE_ONE_PASS is set (the JAX package's own selector,
+(in bfloat16 on the tensor cores, in float32 on the FMA pipes), or, when
+FORCE_ONE_PASS is set (the JAX package's own selector,
 DDDPM_ATTN_ONE_PASS=1 at import), as one cooperative launch of the same
-work, the fold included (attention_1pass, K1c), which writes y out of
-place.  At or below PLAIN_PATH_MAX_TOKENS tokens, and for every tensor on the
-CPU, the plain version `reference_impl` runs instead.  The backward of
-the kernel path is autograd through `reference_impl`, as the JAX
-custom VJP does.
+work, the fold included (attention_1pass, K1c, on the FMA pipes), which
+writes y out of place.  At or below PLAIN_PATH_MAX_TOKENS tokens, and for
+every tensor on the CPU, the plain version `reference_impl` runs instead.
+The backward of the kernel path is autograd through `reference_impl`, as
+the JAX custom VJP does.  The kernels take heads of DIM_HEAD only (4 x 32,
+the one shape every UNet of the repo builds), where JAX's function takes
+any dim_head.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -43,9 +46,10 @@ HIDDEN = 128
 DIM_HEAD = 32
 TOKEN_TILE = 64           # TN in csrc/attention_block.cu
 FOLD_ROWS = 16            # FOLD_ROWS in csrc/attention_block.cu
-# the widest channel count the kernels take (ln_tile's 8 values a lane);
-# every multiple of 32 up to it is instantiated (DDDPM_WIDTHS)
-MAX_WIDTH = 256
+# NS in csrc/attention_block.cu: pass B forms its output in column slabs
+# of this width, so it may write y over x only up to it (a later slab
+# still reads the tile's x)
+COLUMN_SLAB = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the one-pass route instead of the two passes, as the JAX package's
@@ -107,19 +111,8 @@ def out_reference(x, g, b, w_eff, b_out):
     return (x.float() + ln @ w_eff.float() + b_out).to(x.dtype)
 
 
-def fused_width_ok(c: int) -> bool:
-    """Whether the kernels (both passes and the one-pass kernel) take
-    channel width c.  JAX's kernel takes any width; a wider one raises
-    here until K1 is widened (ROADMAP.md section 3)."""
-    return c % 32 == 0 and 0 < c <= MAX_WIDTH
-
-
 def _check(x, g, b, *mats):
     c = x.shape[-1]
-    # the width first, so that the refusal reads the same on any device
-    if not fused_width_ok(c):
-        raise ValueError(f"channel width {c} unsupported: the kernels take "
-                         f"C % 32 == 0, C <= {MAX_WIDTH}")
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPES:
@@ -134,14 +127,56 @@ def _check(x, g, b, *mats):
             raise ValueError("weights must be contiguous, of x's dtype and device")
 
 
-def _chunks(bsz: int, n: int, device) -> tuple:
-    """(nchunks, tiles_per_chunk): token tiles of a sample are spread
-    over enough blocks that every SM gets about two."""
-    ntiles = -(-n // TOKEN_TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = min(ntiles, max(1, -(-2 * sms // bsz)))
-    tpc = -(-ntiles // want)
+@functools.lru_cache(maxsize=None)
+def plan(bsz: int, ntiles: int, slots: int) -> tuple:
+    """(nchunks, tiles_per_chunk) for bsz samples of ntiles token tiles
+    on `slots` blocks.  Items (sample, chunk) are dealt out to the blocks
+    in turn; the busiest block's tiles (the span) should be near the
+    least any chunking gives, and the chunks few (each writes a partial
+    of pass A, and pass B loads W_eff once an item): the fewest chunks
+    whose span is within 5% of the least."""
+    spans = {tpc: -(-bsz * -(-ntiles // tpc) // slots) * tpc
+             for tpc in range(1, ntiles + 1)}
+    least = min(spans.values())
+    tpc = max(t for t, span in spans.items() if span <= 1.05 * least)
     return -(-ntiles // tpc), tpc
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _per_sm(index: int, kind: int, c: int) -> int:
+    """Blocks a SM holds of the tensor-core kernel of pass A (kind 0) or
+    B (kind 1) at width c."""
+    with torch.cuda.device(index):
+        n = library().attn_mma_per_sm(kind, c)
+    if n < 0:
+        _build.check(-n, "attn_mma_per_sm")
+    if n == 0:
+        raise RuntimeError(f"no block of pass {'AB'[kind]}'s kernel fits an SM "
+                           f"at C = {c}")
+    return n
+
+
+def _grid(x, kind: int) -> tuple:
+    """(nchunks, tiles_per_chunk, grid) of a pass over x: the bf16 kernels
+    are persistent (as many blocks as fit on the card, each walking
+    items); the f32 kernels take a block per item, two an SM."""
+    bsz, n, c = x.shape
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    per_sm = _per_sm(index, kind, c) if x.dtype == torch.bfloat16 else 2
+    slots = per_sm * _sms(index)
+    nchunks, tpc = plan(bsz, -(-n // TOKEN_TILE), slots)
+    return nchunks, tpc, min(bsz * nchunks, slots)
+
+
+def _vec(c: int, *tensors) -> int:
+    """1 when the kernels may copy rows by 16 bytes: C % 8 == 0 and
+    every tensor 16-byte aligned."""
+    return int(c % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def attention_ctx(x, g, b, w_kv):
@@ -151,25 +186,27 @@ def attention_ctx(x, g, b, w_kv):
     bsz, n, c = x.shape
     if w_kv.shape != (c, 2 * HIDDEN):
         raise ValueError(f"w_kv must be ({c}, {2 * HIDDEN}), got {tuple(w_kv.shape)}")
-    nchunks, tpc = _chunks(bsz, n, x.device)
+    nchunks, tpc, grid = _grid(x, 0)
     part_a = torch.empty((bsz, nchunks, 4, DIM_HEAD, DIM_HEAD),
                          dtype=torch.float32, device=x.device)
     part_s = torch.empty((bsz, nchunks, HIDDEN), dtype=torch.float32,
                          device=x.device)
     ctx = torch.empty((bsz, HIDDEN, HIDDEN), dtype=torch.float32,
                       device=x.device)
-    lib = _lib()
+    lib = library()
     LAUNCHES["attn_ctx"] += 1
     p = _build.ptr
     _build.check(lib.attn_ctx(p(x), p(g), p(b), p(w_kv), p(part_a), p(part_s),
-                              p(ctx), bsz, n, c, nchunks, tpc,
-                              _DTYPES[x.dtype], _build.stream(x)), "attn_ctx")
+                              p(ctx), bsz, n, c, nchunks, tpc, grid,
+                              _vec(c, x, w_kv), _DTYPES[x.dtype],
+                              _build.stream(x)), "attn_ctx")
     return ctx
 
 
 def attention_out(x, g, b, w_eff, b_out, out=None):
     """Pass B kernel: x + LN(x) @ w_eff[b] + b_out, written to `out`
-    (a new tensor when None; `out` may be x itself)."""
+    (a new tensor when None; `out` may be x itself: above COLUMN_SLAB
+    channels the kernel then writes a new tensor, copied into x)."""
     _check(x, g, b, w_eff)
     bsz, n, c = x.shape
     if w_eff.shape != (bsz, c, c):
@@ -182,12 +219,18 @@ def attention_out(x, g, b, w_eff, b_out, out=None):
     elif (out.shape != x.shape or out.dtype != x.dtype
           or out.device != x.device or not out.is_contiguous()):
         raise ValueError("out must be contiguous and match x")
-    lib = _lib()
+    y = (torch.empty_like(x) if c > COLUMN_SLAB and out.data_ptr() == x.data_ptr()
+         else out)
+    nchunks, tpc, grid = _grid(x, 1)
+    lib = library()
     LAUNCHES["attn_out"] += 1
     p = _build.ptr
-    _build.check(lib.attn_out(p(x), p(g), p(b), p(w_eff), p(b_out), p(out),
-                              bsz, n, c, _DTYPES[x.dtype], _build.stream(x)),
-                 "attn_out")
+    _build.check(lib.attn_out(p(x), p(g), p(b), p(w_eff), p(b_out), p(y),
+                              bsz, n, c, nchunks, tpc, grid,
+                              _vec(c, x, w_eff, y), _DTYPES[x.dtype],
+                              _build.stream(x)), "attn_out")
+    if y is not out:
+        out.copy_(y)
     return out
 
 
@@ -204,7 +247,7 @@ def attention_1pass(x, g, b, w_kv, w_q, w_out, b_out):
     if (b_out.shape != (c,) or b_out.dtype != torch.float32
             or b_out.device != x.device):
         raise ValueError("b_out must be a float32 (C,) tensor on x's device")
-    lib = _lib()
+    lib = library()
     with torch.cuda.device(x.device):
         resident = lib.attn_1p_resident(c, _DTYPES[x.dtype])
     if resident < 0:
@@ -213,7 +256,7 @@ def attention_1pass(x, g, b, w_kv, w_q, w_out, b_out):
         raise RuntimeError("the card cannot hold a block of the one-pass kernel "
                            "(or launch cooperatively)")
     ntiles = -(-n // TOKEN_TILE)
-    grid = min(resident, max(bsz * ntiles, bsz * c // FOLD_ROWS))
+    grid = min(resident, max(bsz * ntiles, bsz * -(-c // FOLD_ROWS)))
     want = min(ntiles, max(1, grid // bsz))
     tpc = -(-ntiles // want)
     nchunks = -(-ntiles // tpc)
@@ -232,14 +275,18 @@ def attention_1pass(x, g, b, w_kv, w_q, w_out, b_out):
     return y
 
 
-def _lib():
-    lib = _build.load("attention_block")
+def library(defines=()):
+    """csrc/attention_block.cu's library built with `defines` (the
+    ablation probe's ATTN_SKIP), its C entries typed."""
+    lib = _build.load("attention_block", tuple(defines))
     if lib.attn_ctx.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.attn_ctx.argtypes = [vp] * 7 + [i] * 6 + [vp]
+        lib.attn_ctx.argtypes = [vp] * 7 + [i] * 8 + [vp]
         lib.attn_ctx.restype = i
-        lib.attn_out.argtypes = [vp] * 6 + [i] * 4 + [vp]
+        lib.attn_out.argtypes = [vp] * 6 + [i] * 8 + [vp]
         lib.attn_out.restype = i
+        lib.attn_mma_per_sm.argtypes = [i, i]
+        lib.attn_mma_per_sm.restype = i
         lib.attn_1p_resident.argtypes = [i, i]
         lib.attn_1p_resident.restype = i
         lib.attn_1p.argtypes = [vp] * 12 + [i] * 7 + [vp]
@@ -299,9 +346,9 @@ def attention_block(x, g, b, w_qkv, w_out, b_out, dim_head: int = DIM_HEAD,
 
     g, b: (C,) LayerNorm params; w_qkv: (C, 3*hidden); w_out: (hidden, C);
     b_out: (C,) f32.  On a CPU tensor the plain version runs.  On a CUDA
-    tensor with N > PLAIN_PATH_MAX_TOKENS the kernels run (the one-pass
-    kernel when FORCE_ONE_PASS is set); any input they do not take
-    (a width that fused_width_ok refuses among them) raises.
+    tensor with N > PLAIN_PATH_MAX_TOKENS the kernels run at any width C
+    (the one-pass kernel when FORCE_ONE_PASS is set); any input they do
+    not take raises.
     inplace=True lets pass B write y over x (the one-pass kernel always
     writes a new tensor); it is allowed only when no gradient is recorded
     (torch.no_grad()), since autograd would need the x that it

@@ -1,12 +1,14 @@
-"""The attention block's channel widths (dddpm_tpu_torch/ops/attention_block.py:
-fused_width_ok): the kernels take every C % 32 == 0 up to 256, a wider
-tensor off the CPU raises, and the CPU's plain version equals the JAX
-package's kernel at those widths and beyond.  The card tests beside
-these are tests/test_torch_cuda.py::test_attention_kernels_match_plain,
-::test_attention_one_pass_matches_plain (the widths 96-224 among their
-cases) and ::test_attention_width_on_card."""
+"""The attention block's channel widths (dddpm_tpu_torch/ops/attention_block.py):
+the kernels take every width C, as JAX's kernel does, with no width table
+or limit left in the source or the wrapper; a tensor off the CPU at any
+width reaches the kernels' device check; the CPU's plain version equals
+the JAX package's kernel at widths on both sides of 256; the kernels take
+heads of 32 only (a deliberate difference, ROADMAP.md section 3); and the
+persistent grid's plan.  The card tests beside these are
+tests/test_torch_cuda.py::test_attention_kernels_match_plain,
+::test_attention_one_pass_matches_plain (C = 20, 40, 320, 512 and 1024
+among their cases) and ::test_attention_width_on_card."""
 import pathlib
-import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -37,28 +39,29 @@ def _refuse(monkeypatch):
         monkeypatch.setattr(tab, entry, refuse)
 
 
-def test_the_source_instantiates_every_width_the_gate_passes():
-    """Pass B and the one-pass kernel are instantiated for C = 32 * NC over
-    the NC that DDDPM_WIDTHS lists: exactly the widths fused_width_ok
-    passes, so no width the wrapper lets through meets a missing case."""
+def test_the_source_has_no_width_table_or_limit():
+    """No list of instantiated widths and no width refusal is left: not in
+    csrc/attention_block.cu (no DDDPM_WIDTHS, no C % 32 or C > 256 test
+    in the C entries) and not in the wrapper (no fused_width_ok or
+    MAX_WIDTH)."""
     text = SOURCE.read_text()
-    line = re.search(r"#define DDDPM_WIDTHS\(X\)(.*)", text).group(1)
-    built = {32 * int(nc) for nc in re.findall(r"X\((\d+)\)", line)}
-    passed = {c for c in range(1, 1025) if tab.fused_width_ok(c)}
-    assert built == passed == set(range(32, 257, 32))
-    for switch in ("DDDPM_OUT", "DDDPM_RESIDENT", "DDDPM_CASE_1P"):
-        assert f"DDDPM_WIDTHS({switch})" in text, switch
+    assert "DDDPM_WIDTHS" not in text
+    entries = text[text.index('extern "C" {'):]
+    for refusal in ("C % 32", "C > 256", "C > NS) return (int)cudaError"):
+        assert refusal not in entries, refusal
+    assert not hasattr(tab, "fused_width_ok")
+    assert not hasattr(tab, "MAX_WIDTH")
 
 
-@pytest.mark.parametrize("c", [160, 320])
+@pytest.mark.parametrize("c", [40, 160, 320, 512])
 @pytest.mark.parametrize("one_pass", [False, True])
 def test_the_cpu_plain_path_matches_jax_at_any_width(monkeypatch, c, one_pass):
-    """A CPU tensor at N = 1024 (above the plain-path token gate) runs the
-    plain version at a width the kernels take (160) and one they do not
-    (320), calls no kernel entry (they are patched to raise) whichever
-    route FORCE_ONE_PASS picks, and equals the JAX package's fused kernel
-    (interpret mode), which takes every width."""
-    args = _inputs(c, 1, 1024, c)
+    """A CPU tensor at N = 520 (just above the plain-path token gate), B =
+    1, runs the plain version at widths below and above 256 and not a
+    multiple of 32 (40), calls no kernel entry (they are patched to raise)
+    whichever route FORCE_ONE_PASS picks, and equals the JAX package's
+    fused kernel (interpret mode), which takes every width."""
+    args = _inputs(c, 1, 520, c)
     _refuse(monkeypatch)
     monkeypatch.setattr(tab, "FORCE_ONE_PASS", one_pass)
     got = tab.attention_block(*map(torch.from_numpy, args), 32)
@@ -71,26 +74,69 @@ def test_the_cpu_plain_path_matches_jax_at_any_width(monkeypatch, c, one_pass):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("c", [320, 40])
 @pytest.mark.parametrize("one_pass", [False, True])
-def test_a_width_the_kernels_do_not_take_raises_off_the_cpu(monkeypatch,
-                                                           one_pass):
-    """Off the CPU there is no plain route for a width: a (meta) tensor of
-    320 channels above the token gate reaches the kernels' check, which
-    refuses it, on either route."""
+def test_any_width_reaches_the_device_check_off_the_cpu(monkeypatch, c, one_pass):
+    """Off the CPU there is no plain route and no width refusal: a (meta)
+    tensor of 320 or 40 channels above the token gate reaches the kernels'
+    check, which refuses it for its device alone, on either route."""
     monkeypatch.setattr(tab, "FORCE_ONE_PASS", one_pass)
-    args = [torch.from_numpy(a).to("meta") for a in _inputs(0, 1, 1024, 320)]
-    with torch.no_grad(), pytest.raises(ValueError, match="channel width 320"):
+    args = [torch.from_numpy(a).to("meta") for a in _inputs(0, 1, 1024, c)]
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor, got meta"):
         tab.attention_block(*args, 32)
 
 
-@pytest.mark.parametrize("c", [96, 128, 160, 256, 288, 320])
-def test_the_gate_and_the_kernels_check_agree(c):
-    """_check refuses a width exactly when fused_width_ok does (it reads
-    the width before the device, so a CPU tensor shows it)."""
+@pytest.mark.parametrize("c", [20, 40, 96, 288, 320, 512, 1024])
+def test_the_kernels_check_passes_every_width(c):
+    """_check has no width test: at every width it fails only on the
+    device (a CPU tensor here), for both passes and the one-pass kernel."""
     x = torch.zeros(1, 1024, c)
     g = torch.ones(c)
-    w_kv = torch.zeros(c, 2 * HIDDEN)
-    match = "CUDA" if tab.fused_width_ok(c) else "channel width"
-    with pytest.raises(ValueError, match=match):
-        tab.attention_ctx(x, g, g, w_kv)
-    assert tab.fused_width_ok(c) is (c <= 256)
+    z = lambda *s: torch.zeros(*s)
+    for call in (lambda: tab.attention_ctx(x, g, g, z(c, 2 * HIDDEN)),
+                 lambda: tab.attention_out(x, g, g, z(1, c, c), g),
+                 lambda: tab.attention_1pass(x, g, g, z(c, 2 * HIDDEN),
+                                             z(c, HIDDEN), z(HIDDEN, c), g)):
+        with pytest.raises(ValueError, match="CUDA tensor, got cpu"):
+            call()
+
+
+@pytest.mark.parametrize("dim_head,hidden", [(16, 128), (32, 64)])
+def test_the_kernels_take_heads_of_32_only(dim_head, hidden):
+    """The deliberate difference of ROADMAP.md section 3: the kernels form
+    4 heads of 32 (every UNet of the repo builds that shape), where JAX's
+    function takes any dim_head; off the CPU another shape raises before
+    any kernel, on the CPU the plain version takes it."""
+    rng = np.random.default_rng(1)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    args = (f(1, 1024, 64), f(64), f(64), f(64, 3 * hidden), f(hidden, 64), f(64))
+    with pytest.raises(ValueError, match=f"heads of {tab.DIM_HEAD}"):
+        tab.attention_block(*(a.to("meta") for a in args), dim_head)
+    out = tab.attention_block(*args, dim_head)
+    assert torch.equal(out, tab.reference_impl(*args, dim_head))
+
+
+@pytest.mark.parametrize("bsz,ntiles,slots", [(8, 256, 132), (8, 256, 264),
+                                              (32, 16, 132), (192, 256, 132),
+                                              (192, 64, 264), (1, 17, 132)])
+def test_plan_keeps_the_busiest_block_near_the_least_span(bsz, ntiles, slots):
+    """The persistent grid's plan: the busiest block's tiles (items dealt
+    out in turn) within 5% of the least any chunking gives, and no
+    chunking with fewer chunks does as well."""
+    def span(tpc):
+        return -(-bsz * -(-ntiles // tpc) // slots) * tpc
+
+    nchunks, tpc = tab.plan(bsz, ntiles, slots)
+    assert nchunks == -(-ntiles // tpc) and 1 <= tpc <= ntiles
+    least = min(span(t) for t in range(1, ntiles + 1))
+    assert span(tpc) <= 1.05 * least
+    assert all(span(t) > 1.05 * least for t in range(tpc + 1, ntiles + 1)
+               if -(-ntiles // t) < nchunks)
+
+
+def test_plan_of_the_main_paths():
+    """The x2 chain's 128^2 site (B = 8, 256 tiles) on 132 blocks: 16
+    chunks of 16 tiles, a block each; the bulk sampler's (B = 192): two
+    chunks a sample, not a chunk a tile (a partial each)."""
+    assert tab.plan(8, 256, 132) == (16, 16)
+    assert tab.plan(192, 256, 132) == (2, 130)

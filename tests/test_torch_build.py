@@ -77,10 +77,10 @@ def test_a_header_edit_names_another_library(build_dir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["conv3x3", "winograd", "probe_cmajor_conv",
-                                  "convres_fwd", "convres_bwd"])
+                                  "convres_fwd", "convres_bwd", "attention_block"])
 def test_tensor_core_kernels_share_one_copy_of_the_fragment_helpers(name):
-    """K5, K6, P4, K2 and K3 include csrc/mma_sm90.cuh and define none of
-    its helpers themselves, so they cannot drift apart."""
+    """K5, K6, P4, K2, K3 and K1a/K1b include csrc/mma_sm90.cuh and define
+    none of its helpers themselves, so they cannot drift apart."""
     source = (_build.CSRC / f"{name}.cu").read_text()
     assert '#include "mma_sm90.cuh"' in source
     for helper in ("cp_async16(", "ldmatrix_x4(", "ldmatrix_x4_trans(",

@@ -50,21 +50,32 @@ def _close(got, want, dtype):
     assert err <= tol, (err, tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bsz,n,c", [(2, 1000, 32), (3, 4096, 128),
-                                     (1, 1024, 256), (2, 777, 64),
-                                     (2, 1000, 96), (1, 1024, 160),
-                                     (1, 777, 192), (2, 600, 224)])
-def test_attention_kernels_match_plain(card, dtype, bsz, n, c):
-    gen = torch.Generator(device=card).manual_seed(n + c)
+# C = 20 (no 16-byte rows), 40 (K and N padded), 320, 512 and 1024 (the
+# weights streamed in K-slabs, pass B in column slabs)
+ATTN_WIDTHS = [(2, 1000, 32), (3, 4096, 128), (1, 1024, 256), (2, 777, 64),
+               (2, 1000, 96), (1, 1024, 160), (1, 777, 192), (2, 600, 224),
+               (2, 1000, 20), (2, 777, 40), (1, 1024, 320), (2, 600, 512),
+               (1, 777, 1024)]
+
+
+def _attn_args(card, bsz, n, c, dtype, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=gen, device=card)
     x = r(bsz, n, c).to(dtype)
     # g, b far from 1, 0: LN moves both passes' outputs
     g, b, b_out = 1.0 + 0.5 * r(c), 0.5 * r(c), 0.1 * r(c)
     w_qkv = (r(c, 384) / c ** 0.5).to(dtype)
     w_out = (r(128, c) / 128 ** 0.5).to(dtype)
-    w_q, w_k, w_v = (w_qkv.reshape(c, 3, 128)[:, i] for i in range(3))
+    w_q, w_k, w_v = (w_qkv.reshape(c, 3, 128)[:, i].contiguous() for i in range(3))
     w_kv = torch.cat([w_k, w_v], dim=1).contiguous()
+    return x, g, b, b_out, w_qkv, w_out, w_q, w_kv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,n,c", ATTN_WIDTHS)
+def test_attention_kernels_match_plain(card, dtype, bsz, n, c):
+    x, g, b, b_out, w_qkv, w_out, w_q, w_kv = _attn_args(card, bsz, n, c, dtype,
+                                                         n + c)
     ctx = ab.attention_ctx(x, g, b, w_kv)
     _close(ctx, ab.ctx_reference(x, g, b, w_kv), dtype)
     w_eff = ab.fold_w_eff(w_q, ctx, w_out, dtype)
@@ -77,6 +88,33 @@ def test_attention_kernels_match_plain(card, dtype, bsz, n, c):
         block = ab.attention_block(x, g, b, w_qkv, w_out, b_out)
     _close(block, ab.reference_impl(x, g, b, w_qkv, w_out, b_out), dtype)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_check_fails_transposed_ctx(card, dtype):
+    """The check above sees a wrong pass A: the kernel's ctx with each
+    head's block transposed (A^T / s instead of A / s) misses the plain
+    version by far more than the tolerance, the kernel's own does not."""
+    x, g, b, _, _, _, _, w_kv = _attn_args(card, 2, 1024, 128, dtype, 5)
+    ctx = ab.attention_ctx(x, g, b, w_kv)
+    want = ab.ctx_reference(x, g, b, w_kv)
+    _close(ctx, want, dtype)
+    heads = ctx.reshape(2, 4, 32, 4, 32)
+    wrong = torch.zeros_like(heads)
+    for h in range(4):
+        wrong[:, h, :, h] = heads[:, h, :, h].transpose(-1, -2)
+    err = float((wrong.reshape(ctx.shape) - want).abs().max())
+    assert err > 5 * _tol(want, dtype), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [128, 512])
+def test_attention_ctx_is_deterministic(card, dtype, c):
+    """Pass A twice on the same input gives the same bits: per-chunk
+    partials summed in chunk order, no atomics."""
+    x, g, b, _, _, _, _, w_kv = _attn_args(card, 8, 4096, c, dtype, 6)
+    assert torch.equal(ab.attention_ctx(x, g, b, w_kv),
+                       ab.attention_ctx(x, g, b, w_kv))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -219,8 +257,9 @@ def test_convres_autograd_on_card_matches_plain(card, scale):
 def test_kernel_paths_refuse_what_they_cannot_take(card):
     x = torch.zeros(1, 1024, 48, device=card)
     g = torch.ones(48, device=card)
+    # K1a: any width, but w_kv must be (C, 256)
     with pytest.raises(ValueError):
-        ab.attention_ctx(x, g, g, torch.zeros(48, 256, device=card))
+        ab.attention_ctx(x, g, g, torch.zeros(48, 128, device=card))
     # 48 in/out channels: neither ConvResBlock kernel takes them, with or
     # without autograd
     w = torch.zeros(1, 1, 48, 32, device=card, requires_grad=True)
@@ -260,13 +299,13 @@ def test_kernel_paths_refuse_what_they_cannot_take(card):
         la.linear_attention(*(z(1, 64, 96),) * 3)
     with pytest.raises(ValueError):
         la.linear_attention(*(z(1, 64, 64),) * 3, dim_head=16)
-    # K1c: a wrong dtype, an unsupported width (288: above 256)
+    # K1c: a wrong dtype, a w_q of another width than x's (288 against 320)
     with pytest.raises(TypeError):
         ab.attention_1pass(z(1, 1024, 64, dt=torch.float16), z(64), z(64),
                            z(64, 256), z(64, 128), z(128, 64), z(64))
     with pytest.raises(ValueError):
-        ab.attention_1pass(z(1, 1024, 288), z(288), z(288), z(288, 256),
-                           z(288, 128), z(128, 288), z(288))
+        ab.attention_1pass(z(1, 1024, 320), z(320), z(320), z(320, 256),
+                           z(288, 128), z(128, 320), z(320))
 
 
 def _rand(card, seed):
@@ -425,7 +464,9 @@ def test_linear_attention_gradients_on_card(card):
                                      (1, 1024, 256), (2, 777, 64),
                                      (8, 16384, 128), (1, 1024, 96),
                                      (2, 1000, 160), (1, 777, 192),
-                                     (2, 600, 224)])
+                                     (2, 600, 224), (2, 1000, 20),
+                                     (2, 777, 40), (1, 1024, 320),
+                                     (2, 600, 512), (1, 777, 1024)])
 def test_attention_one_pass_matches_plain(card, dtype, bsz, n, c, monkeypatch):
     """K1c against its plain version and against the two-pass route, and
     attention_block under FORCE_ONE_PASS takes it (and not the passes)."""
@@ -685,15 +726,16 @@ def test_resample_selector_on_card(card, value):
 
 
 def test_attention_width_on_card(card):
-    """A UNet 160 channels wide (four attention sites of 160 channels above
-    512 tokens, a width K1 took only from this change on) runs the K1a/K1b
-    kernels with use_pallas_attention True and matches the same UNet with
-    it False; a site of 320 channels (wider than K1 takes) raises."""
+    """A UNet 256 channels wide with dims (1, 2) (attention sites of 256,
+    512, 512 and 256 channels above 512 tokens on a 64^2 latent; at 512
+    the weights stream in K-slabs and pass B writes a new tensor that is
+    copied over x) runs K1a/K1b at every site with use_pallas_attention
+    True, and matches the same UNet with it False."""
     outs = []
     for value in (True, False):
-        cfg = dict(model="dddpm", dataset="synthetic", image_size=256, T=50,
+        cfg = dict(model="dddpm", dataset="synthetic", image_size=128, T=50,
                    loss_type="simple", beta_schedule="linear",
-                   loss_flat="sum", unet_chan=160, unet_dims=(1, 1),
+                   loss_flat="sum", unet_chan=256, unet_dims=(1, 2),
                    unet_dropout=0.0, unet_in=8, n_downsamples=1,
                    d_mode="convolutional_res", u_mode="convolutional_res",
                    d_dropout=0, d_chans=64, d_n_blocks=2, u_n_blocks=2,
@@ -702,8 +744,9 @@ def test_attention_width_on_card(card):
         net, _, init_fn, cfg = build_model(cfg, device=card)
         init_fn(0)
         assert cfg["use_pallas_attention"] is value
+        assert [m.norm.g.shape[0] for m in net.unet.attns] == [256, 512, 512, 256]
         gen = torch.Generator(device=card).manual_seed(3)
-        z = torch.randn(1, 8, 128, 128, generator=gen, device=card)
+        z = torch.randn(1, 8, 64, 64, generator=gen, device=card)
         before = dict(ab.LAUNCHES)
         with torch.no_grad():
             outs.append(net.unet(z, torch.tensor([40], device=card)))
@@ -715,8 +758,3 @@ def test_attention_width_on_card(card):
         del net
     assert torch.isfinite(outs[0]).all()
     _close(outs[0], outs[1], torch.bfloat16)
-    r = _rand(card, 320)
-    x = r(1, 1024, 320).to(torch.bfloat16)
-    with torch.no_grad(), pytest.raises(ValueError, match="channel width 320"):
-        ab.attention_block(x, r(320), r(320), r(320, 384).to(torch.bfloat16),
-                           r(128, 320).to(torch.bfloat16), r(320))
