@@ -68,23 +68,47 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    K3 with parts compiled out, timed at the x3 training shapes) and
    K1a/K1b's (probes/attention_ablation.py: the same at the x2 sites,
    then the tensor-core and the FMA kernels in bf16 at 512 channels,
-   each checked against the plain versions, then timed).
+   each checked against the plain versions, then timed);
+11. the evaluation path, through the port's entry points, each with the
+   counters zeroed just before and read just after (run after phase 5,
+   before phase 10): resume_main takes phase 5's x3 checkpoint 2 steps
+   further; generate_main samples 192 images by DDIM-50 at B = 192 from
+   a saved x2 checkpoint (full width, random init, synthetic 256^2);
+   ref_batch_main writes 192 reference images; evaluate_main runs one
+   B = 8 batch of the full 1000-t test-set VLB and FID / sFID / IS /
+   precision / recall through the random-init Inception; compare_main
+   holds the reference batch against itself; then the Inception heads
+   on the card against the CPU and the pairwise-distance tile against
+   float64 numpy.  It prints one {"eval_path": ...} line.
 
 The last three lines are a JSON object with the kernels' numbers (one
 entry per kernel and path, its launches counted on that path's own run),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import os
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dddpm_tpu_torch import (
+    compare_main,
+    evaluate_main,
+    generate_main,
+    ref_batch_main,
+    resume_main,
+)
+from dddpm_tpu_torch.evaluation.inception import FeatureExtractor
+from dddpm_tpu_torch.evaluation import prec_recall
+from dddpm_tpu_torch.evaluation.prec_recall import pairwise_sq_dists
 from dddpm_tpu_torch.models.ddpm import draw_t, fold_seed
 from dddpm_tpu_torch.models.factory import build_model
+from dddpm_tpu_torch.models.resample import ConvResBlock
 from dddpm_tpu_torch.ops import _build
 from dddpm_tpu_torch.ops import attention_block as ab
 from dddpm_tpu_torch.ops import conv3x3 as c3
@@ -1199,6 +1223,244 @@ def phase_probes(results):
             **{k: h[k] for k in ("library_cl_ms",) if k in h})
 
 
+# phase 11: the x2 checkpoint the evaluation path reads; X2_CONFIG on
+# synthetic 256^2 images (the same widths: 3 colour channels), which the
+# card's machine can make, with an EMA and bench.py's lr
+X2_EVAL_CONFIG = dict(X2_CONFIG, dataset="synthetic", ema_decay=0.995,
+                      lr=2e-4, rnd_flip=False, val_split=0)
+DDIM_STEPS = 50
+RESUME_STEPS = 2
+INCEPTION_PASSES = 11   # 2112 images timed
+EVAL_DIR = os.path.join(WORKDIR, "eval")
+
+
+def predicted_fused_blocks(module, shape) -> int:
+    """ConvResBlocks of `module` that fused_shape_ok admits at the shapes
+    one NCHW call on `shape` gives them (forward pre-hooks read each
+    block's input; the call runs on the card)."""
+    admitted = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: admitted.append(m.fused_shape_ok(*a[0].shape[2:])))
+        for m in module.modules() if isinstance(m, ConvResBlock)]
+    with torch.no_grad():
+        module(torch.zeros(shape, device="cuda"))
+    for h in hooks:
+        h.remove()
+    return sum(admitted)
+
+
+def check_bulk_kernels() -> dict:
+    """K1a/K1b at every x2 attention site and K2 at the x2 decode blocks,
+    at the bulk sampler's B_BULK (the batch phase 11's DDIM run gives
+    them; K1's plan takes another persistent-grid regime there), bf16,
+    against their plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dt, errs = torch.bfloat16, {}
+    for n, c in sorted(set(ATTN_SITES), reverse=True):
+        x, g, b, w_qkv, w_out, b_out = attn_inputs(n, c, dt, gen, B_BULK)
+        w_q, w_k, w_v = (w_qkv.reshape(c, 3, ab.HIDDEN)[:, i] for i in range(3))
+        w_kv = torch.cat([w_k, w_v], dim=1).contiguous()
+        ctx_ref = ab.ctx_reference(x, g, b, w_kv)
+        errs[f"attn_ctx N={n} C={c}"] = check_close(
+            f"attn_ctx B={B_BULK} N={n} C={c}", ab.attention_ctx(x, g, b, w_kv),
+            ctx_ref, dt)
+        w_eff = ab.fold_w_eff(w_q, ctx_ref, w_out, dt)
+        errs[f"attn_out N={n} C={c}"] = check_close(
+            f"attn_out B={B_BULK} N={n} C={c}",
+            ab.attention_out(x, g, b, w_eff, b_out),
+            ab.out_reference(x, g, b, w_eff, b_out), dt)
+        del x, ctx_ref
+    for h, w, scale in sorted(set(CONVRES_DECODE), key=str):
+        args = convres_inputs(h, w, dt, gen, B_BULK)
+        with torch.no_grad():
+            errs[f"convres {h}x{w} scale={scale}"] = check_close(
+                f"convres B={B_BULK} {h}x{w} scale={scale}",
+                cr.fused_convres_block(*args, residual=True, scale=scale),
+                cr.reference_impl(*args, residual=True, scale=scale), dt)
+        del args
+    torch.cuda.empty_cache()
+    return errs
+
+
+def tile_rel_err(a: np.ndarray, b: np.ndarray, tf32: bool = False) -> float:
+    """pairwise_sq_dists on the card against float64 numpy, its largest
+    error over the largest distance.  tf32=True is the control: the same
+    function with its full-f32 pin taken out and TF32 on globally."""
+    exact = ((a[:, None].astype(np.float64) - b[None]) ** 2).sum(-1)
+    ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    if tf32:
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with mock.patch.object(prec_recall, "full_f32", contextlib.nullcontext):
+                d = pairwise_sq_dists(ta, tb)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    else:
+        d = pairwise_sq_dists(ta, tb)
+    return float(np.abs(d.cpu().numpy() - exact).max() / exact.max())
+
+
+def phase_eval(ckpt_x3: str, seed_x3: int):
+    """The evaluation path through the entry points a user calls."""
+    os.makedirs(EVAL_DIR, exist_ok=True)
+    out = {"card": card_line()}
+
+    # resume: phase 5's x3 checkpoint, 2 more steps
+    step0 = checkpoint.load_step(ckpt_x3)
+    rows = [n for r in recon_rows(seed_x3, RESUME_STEPS, start=step0) for n in r]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    resumed = resume_main.main(["--checkpoint", ckpt_x3, "--steps",
+                                str(step0 + RESUME_STEPS), "-mute"])
+    torch.cuda.synchronize()
+    launched = counts()
+    want = {"attn_ctx": 2 * RESUME_STEPS, "attn_out": 2 * RESUME_STEPS,
+            "convres_fwd": sum(FWD_PER_MB if n else FWD_NO_ROWS for n in rows),
+            "convres_bwd": sum(BWD_PER_MB if n else 0 for n in rows)}
+    log(f"eval path, resume: x3 from step {step0}, {RESUME_STEPS} steps "
+        f"({time.time() - t0:.2f} s with set-up); recon rows {rows}; "
+        f"launches {launched}")
+    assert resumed.step == step0 + RESUME_STEPS, resumed.step
+    new = resumed.train_losses[-RESUME_STEPS:]
+    assert len(resumed.train_losses) == step0 + RESUME_STEPS
+    assert np.isfinite(new).all(), new
+    assert {k: launched[k] for k in want} == want, (launched, want)
+    assert not any(v for k, v in launched.items() if k not in want), launched
+    out["resume"] = {"steps": RESUME_STEPS, "train_obj": new,
+                     "launches": {k: launched[k] for k in want}}
+    del resumed
+    torch.cuda.empty_cache()
+
+    # a full-width x2 checkpoint, random init
+    net, _, init_fn, config = build_model(X2_EVAL_CONFIG)
+    init_fn(0)
+    ckpt_x2 = checkpoint.save_checkpoint(
+        os.path.join(EVAL_DIR, "x2_ddim"),
+        create_train_state(net, create_optimizer(net, config["lr"]), seed=0),
+        config)
+    k2_down = predicted_fused_blocks(net.downsample, (1, 3, 256, 256))
+    k2_up = predicted_fused_blocks(net.upsample, (1, 8, 128, 128))
+    del net
+    torch.cuda.empty_cache()
+
+    # generate: DDIM-50 at the bulk sampler's batch
+    torch.cuda.synchronize()
+    reset_counts()
+    samples, _, timing = generate_main.main(
+        ["--checkpoint", ckpt_x2, "--ddim-steps", str(DDIM_STEPS),
+         "--fid-samples", str(B_BULK), "--batch-size", str(B_BULK),
+         "--out", os.path.join(EVAL_DIR, "samples"),
+         "--latent-out", os.path.join(EVAL_DIR, "samples_latent")])
+    launched = counts()
+    log(f"eval path, generate: DDIM-{DDIM_STEPS} + decode at B={B_BULK}, "
+        f"{timing['total_s']:.3f} s, {timing['imgs_per_sec']:.3f} imgs/s "
+        f"(the first batch of the process at these shapes) [{out['card']}]; "
+        f"launches {launched}")
+    assert samples.shape == (1, B_BULK, 256, 256, 3), samples.shape
+    assert np.isfinite(samples).all()
+    assert samples.min() >= 0.0 and samples.max() <= 255.0
+    assert launched["attn_ctx"] == launched["attn_out"] == 5 * DDIM_STEPS, launched
+    # one K2 launch a decoder block, whatever the batch (ops/convres.py)
+    assert launched["convres_fwd"] == k2_up == 3, (launched, k2_up)
+    assert not any(v for k, v in launched.items()
+                   if k not in ("attn_ctx", "attn_out", "convres_fwd")), launched
+    out["generate"] = {"ddim_steps": DDIM_STEPS, "batch": B_BULK,
+                       "total_s": timing["total_s"],
+                       "imgs_per_sec": timing["imgs_per_sec"],
+                       "launches": launched}
+    samples_npy = os.path.join(EVAL_DIR, "samples", "x2_ddim.npy")
+    del samples
+    out["generate"]["kernels_at_batch"] = check_bulk_kernels()
+
+    # the reference batch
+    ref_npy = ref_batch_main.main(
+        ["-d", "synthetic", "-is", "256", "--n", str(B_BULK), "--bs", str(B),
+         "--out", os.path.join(EVAL_DIR, "reference")])
+
+    # evaluate: one B = 8 batch of the full test-set VLB, then the metrics
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    metrics, ev_timing = evaluate_main.main(
+        ["--checkpoint", ckpt_x2, "--samples", samples_npy, "--reference",
+         ref_npy, "--allow-random-inception", "--test-batches", "1"])
+    launched = counts()
+    T = X2_EVAL_CONFIG["T"]
+    log(f"eval path, evaluate: {time.time() - t0:.1f} s; test losses "
+        f"{ev_timing['test_losses_s']:.3f} s for one B={B} batch of the "
+        f"{T}-t VLB ({ev_timing['test_losses_s'] / T * 1e3:.2f} ms a t) "
+        f"[{out['card']}]; launches {launched}; K2 predicted for the "
+        f"downsampler {k2_down}")
+    assert launched["attn_ctx"] == launched["attn_out"] == 5 * T, launched
+    assert launched["convres_fwd"] == k2_down, (launched, k2_down)
+    assert not any(v for k, v in launched.items()
+                   if k not in ("attn_ctx", "attn_out", "convres_fwd")), launched
+    for k in ("vlb", "L_simple", "is", "precision", "recall"):
+        assert np.isfinite(metrics[k]), (k, metrics)
+    # FID / sFID may be NaN: 192 samples in 2048-d (tests/test_evaluation.py)
+    assert all(np.isfinite(metrics[k]) or np.isnan(metrics[k])
+               for k in ("fid", "sfid")), metrics
+    assert metrics["inception_weights"] == "random-init"
+    out["evaluate"] = {"test_losses_s": ev_timing["test_losses_s"],
+                       "test_batch": B, "T": T, "metrics": metrics,
+                       "launches": launched}
+
+    # compare: the reference batch against itself
+    same = compare_main.main(["--batch1", ref_npy, "--batch2", ref_npy,
+                              "--allow-random-inception"])
+    assert abs(same["fid"]) < 1e-3, same
+    assert same["precision"] == 1.0 and same["recall"] == 1.0, same
+    out["compare_self"] = same
+
+    # Inception on the card: imgs/s, and its heads against the CPU's
+    fe = FeatureExtractor()
+    fe(ref_npy)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(INCEPTION_PASSES):
+        acts = fe(samples_npy)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_imgs = INCEPTION_PASSES * B_BULK
+    log(f"eval path, Inception: {n_imgs / dt:.1f} imgs/s ({INCEPTION_PASSES} "
+        f"passes over {B_BULK} images of 256^2 from the npy, {n_imgs} in "
+        f"{dt:.3f} s, batch {fe.batch_size}, f32, TF32 off) [{out['card']}]")
+    out["inception_imgs_per_sec"] = n_imgs / dt
+    out["inception_images_timed"] = n_imgs
+    imgs = np.load(ref_npy, mmap_mode="r").reshape(-1, 256, 256, 3)[:8]
+    want = FeatureExtractor(device="cpu")(imgs)
+    got = fe(imgs)
+    errs = {}
+    for k in ("pool3", "spatial", "softmax"):
+        errs[k] = float(np.abs(got[k] - want[k]).max())
+        tol = 1e-3 * float(np.abs(want[k]).max())
+        log(f"  Inception {k}, card vs CPU (8 images, f32): max_abs_err "
+            f"{errs[k]:.3e} (tol {tol:.3e})")
+        assert errs[k] <= tol, (k, errs[k], tol)
+    # the tile on the pool3 features, and on features with pool3's large
+    # common offset (1 + 0.3 randn), where the form cancels: there the
+    # control without the full-f32 pin must miss the limit, or the check
+    # could not see a TF32 product
+    rng = np.random.RandomState(13)
+    tiles = {"pool3": (acts["pool3"], fe(ref_npy)["pool3"]),
+             "offset": ((1 + 0.3 * rng.randn(512, 2048)).astype(np.float32),
+                        (1 + 0.3 * rng.randn(512, 2048)).astype(np.float32))}
+    pair = {}
+    for k, (a, b) in tiles.items():
+        pair[k] = {"rel_err": tile_rel_err(a, b),
+                   "tf32_control_rel_err": tile_rel_err(a, b, tf32=True)}
+        log(f"  pairwise tile {k}, {a.shape[0]} x {b.shape[0]} x 2048 on the "
+            f"card vs float64 numpy: max err {pair[k]['rel_err']:.3e} of the "
+            f"largest (tol 1e-4); control with TF32 "
+            f"{pair[k]['tf32_control_rel_err']:.3e}")
+        assert pair[k]["rel_err"] <= 1e-4, (k, pair[k])
+    assert pair["offset"]["tf32_control_rel_err"] > 1e-4, pair
+    out["card_vs_cpu"] = {"inception_max_abs_err": errs, "pairwise": pair}
+    print(json.dumps({"eval_path": out}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1232,8 +1494,12 @@ def main() -> int:
     phase_linear_attention(results, net.unet)
     phase_one_pass(results, process)
     del net, process
-    phase_train(results)
+    trainer = phase_train(results)
+    ckpt_x3, seed_x3 = trainer.checkpoint_dir, trainer.state.seed
+    del trainer
+    torch.cuda.empty_cache()
     phase_train_against_cpu()
+    phase_eval(ckpt_x3, seed_x3)
     phase_probes(results)
     log(f"chip_smoke: {time.time() - t0:.1f} s after the build started")
 

@@ -16,6 +16,7 @@ import argparse
 from typing import Dict, List, Tuple
 
 from dddpm_tpu_torch.data.datasets import DATASETS
+from dddpm_tpu_torch.utils import paths
 
 MODEL_NAMES = ["ddpm"]
 
@@ -113,7 +114,7 @@ def get_args(data_names: List[str] = DATASETS,
     parser.add_argument(
         "-downsample", default=0, type=int, dest="n_downsamples",
         help="How many x2 downsamples to perform. 0 runs standard DDPM.")
-    parser.add_argument("--data-root", default="./data/", type=str,
+    parser.add_argument("--data-root", default=paths.DATA_DIR, type=str,
                         dest="data_root")
     parser.add_argument("--T", default=None, type=int, dest="T_override",
                         help="override the number of diffusion steps T")

@@ -1,0 +1,96 @@
+"""Bulk sample generation for FID (counterpart of
+generate_model_samples.py):
+
+    python -m dddpm_tpu_torch.generate_main --checkpoint <dir> \
+        [--fid-samples 50000] [--batch-size 192] [--out results/samples] \
+        [--ddim-steps S [--ddim-eta E]] [--device cpu]
+
+Loads a checkpoint of the port (the EMA weights when the run kept an
+EMA, else the raw weights), samples ceil(fid_samples / batch_size)
+batches, prints the timing lines of the JAX script and saves the
+(n_batches, B, H, W, C) [0, 255] samples npy (and the latent npy for
+dDDPM) under the checkpoint's name.  Runs on the CUDA card unless
+--device cpu is given.  The JAX script's --chain-segments (a TPU-runtime
+workaround) and --prng-impl have no counterpart; its int8 flags are not
+ported.
+"""
+import argparse
+import json
+import os
+
+import numpy as np
+
+from dddpm_tpu_torch.models.factory import build_model
+from dddpm_tpu_torch.sample import generate_samples
+from dddpm_tpu_torch.train import checkpoint as ckpt
+from dddpm_tpu_torch.utils import paths
+
+
+def load_eval_model(ckpt_dir: str, device=None, batch_size=None):
+    """(net, process, config) of a checkpoint, with the weights an
+    evaluation takes: the EMA weights when ema_decay > 0, else the raw
+    ones (a run without an EMA keeps its initial weights in the EMA
+    slot)."""
+    config = ckpt.load_config(ckpt_dir)
+    if "unet_dims" in config:
+        config["unet_dims"] = tuple(config["unet_dims"])
+    if batch_size is not None:
+        config["batch_size"] = batch_size
+    net, process, _, config = build_model(config, device)
+    net.load_state_dict(ckpt.load_model_params(
+        ckpt_dir, prefer_ema=config.get("ema_decay", 0) > 0))
+    return net, process, config
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--fid-samples", type=int, default=50000)
+    p.add_argument("--batch-size", type=int, default=192)
+    p.add_argument("--out", default=paths.SAMPLE_DIR)
+    p.add_argument("--latent-out", default=paths.SAMPLE_LATENT_DIR)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ddim-steps", type=int, default=None,
+                   help="use strided DDIM sampling with this many steps "
+                        "instead of the full ancestral chain")
+    p.add_argument("--ddim-eta", type=float, default=0.0)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; 'cpu' runs "
+                        "the plain PyTorch path)")
+    args = p.parse_args(argv)
+
+    _, process, config = load_eval_model(args.checkpoint, args.device,
+                                         args.batch_size)
+    step = ckpt.load_step(args.checkpoint)
+
+    name = os.path.basename(os.path.normpath(args.checkpoint))
+    print(f"\nGenerating {args.fid_samples} samples from checkpoint {name}.")
+    print(f"Trained for {step} steps with configuration dict:")
+    print(json.dumps({k: str(v) if isinstance(v, tuple) else v
+                      for k, v in config.items()}, indent=4) + "\n")
+
+    samples, latents, timing = generate_samples(
+        process, args.seed, args.fid_samples, args.batch_size,
+        ddim_steps=args.ddim_steps, ddim_eta=args.ddim_eta)
+
+    print(f"Using batch size {args.batch_size}")
+    print(f"Total time: {timing['total_s']}")
+    print(f"Sample time: {timing['per_sample_s']}")
+    print(f"Batch time: {timing['per_batch_s']}")
+    print(f"Throughput: {timing['imgs_per_sec']:.2f} imgs/sec")
+
+    os.makedirs(args.out, exist_ok=True)
+    save_path = os.path.join(args.out, name)
+    np.save(save_path, samples, allow_pickle=False)
+    print(f"Samples saved to {save_path}")
+
+    if latents is not None:
+        os.makedirs(args.latent_out, exist_ok=True)
+        save_path = os.path.join(args.latent_out, name)
+        np.save(save_path, latents, allow_pickle=False)
+        print(f"Latent samples saved to {save_path}")
+    return samples, latents, timing
+
+
+if __name__ == "__main__":
+    main()

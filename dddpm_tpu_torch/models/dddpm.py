@@ -1,5 +1,5 @@
-"""Downsampled DDPM (port of dddpm_tpu/models/dddpm.py): sampling and
-the training objective.
+"""Downsampled DDPM (port of dddpm_tpu/models/dddpm.py): sampling (the
+ancestral chain and DDIM), the training objective and the test-set VLB.
 
 The reverse chain runs in the latent space of a learned downsampler;
 one learned upsample maps the final latent to image space.  Both spaces
@@ -8,7 +8,7 @@ applies only where t < t_rec_max.  Tensors at this level are NHWC.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -75,6 +75,15 @@ class DownsampleDiffusion(GaussianDiffusion):
         return (x, z) if every is None else (x, z, out[1])
 
     @torch.no_grad()
+    def ddim_sample(self, batch_size: int = 16, seed: int = 0,
+                    num_steps: int = 50, eta: float = 0.0,
+                    spacing: str = "linear", noise: Noise = None):
+        """Strided DDIM chain in latent space, then one upsample: (x, z)."""
+        z = self.ddim_sample_loop(batch_size, seed, num_steps, eta, spacing,
+                                  noise)
+        return self.rescaled_upsample(z), z
+
+    @torch.no_grad()
     def reconstruct(self, x, n: int, seed: int = 0):
         """(x_recon, z_recon) at n linearly spaced noise scales."""
         x = x[:n]
@@ -110,6 +119,13 @@ class DownsampleDiffusion(GaussianDiffusion):
         obj, parts = self.losses(x, t, eps)
         return obj, {"train_obj": obj, "train_latent": parts["latent"],
                      "train_recon": parts["recon"]}
+
+    @torch.no_grad()
+    def test_losses(self, x, seed: int = 0,
+                    noise: Noise = None) -> Dict[str, torch.Tensor]:
+        """The full-chain VLB computed in z-space (reference
+        dddpm.py:145-148)."""
+        return super().test_losses(self.rescaled_downsample(x), seed, noise)
 
 
 class DownsampleDiffusionAutoencoder(DownsampleDiffusion):

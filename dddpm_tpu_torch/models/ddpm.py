@@ -8,7 +8,8 @@ Per-step noise is injectable.  By default the noise of step t is drawn
 from a torch.Generator seeded from (seed, t) alone, so running the chain
 as consecutive segments over slices of one ts equals the whole chain bit
 for bit.  A caller may instead pass `noise`: a callable t -> tensor, or a
-tensor holding one pre-drawn draw per entry of ts.
+tensor holding one pre-drawn draw per entry of ts.  The DDIM chain and
+the full-chain VLB (test_losses) draw theirs the same way.
 
 The training draws (a micro-batch's t and eps) are injectable the same
 way: `loss_fn(x, key, t=None, eps=None)`.  By default t comes from a CPU
@@ -19,12 +20,20 @@ fold_seed(fold_seed(seed, step), micro_batch).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from dddpm_tpu_torch.models.schedule import DiffusionSchedule, gather
-from dddpm_tpu_torch.ops.math import l2_loss, reduce_mean, reduce_sum
+from dddpm_tpu_torch.ops.math import (
+    discretized_gaussian_log_likelihood,
+    flat_bits,
+    l2_loss,
+    normal_kl,
+    reduce_mean,
+    reduce_sum,
+)
 
 Noise = Union[None, Callable[[int], torch.Tensor], torch.Tensor]
 _MASK64 = (1 << 64) - 1
@@ -103,6 +112,13 @@ class GaussianDiffusion:
         self.flatten_loss = reduce_sum if loss_flat == "sum" else reduce_mean
 
     # ---------------------------------------------------------------- q / p
+
+    def q_mean_variance(self, x, t):
+        """q(x_t | x_0): mean, variance, log-variance."""
+        s = self.schedule
+        return (gather(s.sqrt_alphas_cumprod, t, x.ndim) * x,
+                gather(1.0 - s.alphas_cumprod, t, x.ndim),
+                gather(s.log_one_minus_alphas_cumprod, t, x.ndim))
 
     def q_sample(self, x, t, eps):
         """sqrt(ab_t) x + sqrt(1 - ab_t) eps."""
@@ -205,6 +221,84 @@ class GaussianDiffusion:
         """A batch of samples; with `every=k`, (final, snapshots)."""
         return self.p_sample_loop(batch_size, seed, early_stop, every, noise)
 
+    def ddim_taus(self, num_steps: int, spacing: str = "linear") -> List[int]:
+        """Descending tau subsequence.  'linear' spaces uniformly; 'quad'
+        concentrates steps near t = 0 (linspace(0, sqrt(0.8 T), S)^2)."""
+        if spacing == "linear":
+            taus = np.linspace(0, self.timesteps - 1, num_steps)
+        elif spacing == "quad":
+            taus = np.linspace(0, np.sqrt(self.timesteps * 0.8),
+                               num_steps) ** 2
+        else:
+            raise ValueError(f"unknown tau spacing '{spacing}'")
+        taus = np.unique(taus.round().astype(np.int32))
+        return [int(t) for t in taus[::-1]]
+
+    def ddim_coefficients(self, taus: Sequence[int], eta: float
+                          ) -> List[Tuple[float, float, float]]:
+        """Per DDIM step, (sqrt(ab_prev), dir_xt, sigma): float64 on the
+        host from the schedule's float32 ab, rounded to float32, with
+        ab_prev = 1 after the last tau.
+
+          sigma  = eta sqrt((1 - ab_prev) / (1 - ab)) sqrt(1 - ab / ab_prev)
+          dir_xt = sqrt(max(1 - ab_prev - sigma^2, 0))
+        """
+        ab_all = self.schedule.alphas_cumprod.detach().cpu().double().numpy()
+        f32 = lambda v: float(np.float32(v))
+        out = []
+        for i, t in enumerate(taus):
+            ab = ab_all[t]
+            ab_prev = ab_all[taus[i + 1]] if i + 1 < len(taus) else 1.0
+            sigma = (eta * np.sqrt((1.0 - ab_prev) / (1.0 - ab))
+                     * np.sqrt(1.0 - ab / ab_prev))
+            dir_xt = np.sqrt(max(1.0 - ab_prev - sigma ** 2, 0.0))
+            out.append((f32(np.sqrt(ab_prev)), f32(dir_xt), f32(sigma)))
+        return out
+
+    def ddim_step(self, img, t: int, coefs: Tuple[float, float, float],
+                  noise: Optional[torch.Tensor]):
+        """One DDIM step (Song et al.) at t with coefs = (sqrt(ab_prev),
+        dir_xt, sigma):
+
+          x_prev = sqrt(ab_prev) x0 + dir_xt eps_hat + sigma z
+
+        with x0 clipped; z is not needed (None) where sigma is 0."""
+        c_x0, c_eps, sigma = coefs
+        t_b = torch.full((img.shape[0],), t, dtype=torch.int64,
+                         device=img.device)
+        eps_hat = self.eps_fn(img, t_b).float()
+        x0 = self.predict_x_from_eps(img, t_b, eps_hat, clip=True)
+        out = c_x0 * x0 + c_eps * eps_hat
+        return out + sigma * noise if sigma else out
+
+    @torch.no_grad()
+    def ddim_sample_chain(self, img, taus: Sequence[int], eta: float = 0.0,
+                          seed: int = 0, noise: Noise = None):
+        """DDIM over a descending tau sequence.  The step scalars come
+        from the host (ddim_coefficients), so no step waits on the
+        device; where sigma is 0 (eta 0, and always at the last step) no
+        noise is drawn."""
+        taus = [int(t) for t in taus]
+        for i, (t, coefs) in enumerate(
+                zip(taus, self.ddim_coefficients(taus, eta))):
+            z = self._noise(noise, seed, i, t, img) if coefs[2] else None
+            img = self.ddim_step(img, t, coefs, z)
+        return img
+
+    def ddim_sample_loop(self, batch_size: int, seed: int = 0,
+                         num_steps: int = 50, eta: float = 0.0,
+                         spacing: str = "linear", noise: Noise = None):
+        """The DDIM chain from a seeded N(0, I) start."""
+        return self.ddim_sample_chain(self.init_latent(batch_size, seed),
+                                      self.ddim_taus(num_steps, spacing),
+                                      eta, seed, noise)
+
+    def ddim_sample(self, batch_size: int = 16, seed: int = 0,
+                    num_steps: int = 50, eta: float = 0.0,
+                    spacing: str = "linear", noise: Noise = None):
+        return self.ddim_sample_loop(batch_size, seed, num_steps, eta, spacing,
+                                     noise)
+
     @torch.no_grad()
     def reconstruct(self, x, n: int, seed: int = 0):
         """One-step denoised reconstructions at n linearly spaced t."""
@@ -252,3 +346,50 @@ class GaussianDiffusion:
         t, eps = self._draws(x, key, t, eps)
         obj = self.losses(x, t, eps)
         return obj, {"train_obj": obj}
+
+    # ------------------------------------------------------------ VLB / NLL
+
+    def vlb_terms(self, x, x_t, t, eps_hat=None):
+        """L_t = KL(q(x_{t-1}|x_t,x_0) || p(x_{t-1}|x_t)); L_0 = the
+        discretized NLL.  Bits/dim per batch element."""
+        true_mean, _, true_log_var = self.q_posterior(x, x_t, t)
+        if eps_hat is None:
+            eps_hat = self.eps_fn(x_t, t).float()
+        x_recon = self.predict_x_from_eps(x_t, t, eps_hat, clip=True)
+        pred_mean, _, pred_log_var = self.q_posterior(x_recon, x_t, t)
+        if self.loss_type == "hybrid":   # the vlb part trains variances only
+            true_mean, pred_mean = true_mean.detach(), pred_mean.detach()
+        kl = flat_bits(normal_kl(true_mean, true_log_var, pred_mean,
+                                 pred_log_var))
+        nll = flat_bits(-discretized_gaussian_log_likelihood(
+            x, means=pred_mean, log_scales=0.5 * pred_log_var))
+        return torch.where(t == 0, nll, kl)
+
+    def calc_prior(self, x):
+        """L_T = KL(q(x_T | x_0) || N(0, I)), bits/dim per element."""
+        t = torch.full((x.shape[0],), self.timesteps - 1, dtype=torch.int64,
+                       device=x.device)
+        mean, _, log_var = self.q_mean_variance(x, t)
+        return flat_bits(normal_kl(mean, log_var, 0.0, 0.0))
+
+    @torch.no_grad()
+    def test_losses(self, x, seed: int = 0,
+                    noise: Noise = None) -> Dict[str, torch.Tensor]:
+        """Full-chain VLB + L_simple over every t, T-1 down to 0, one UNet
+        evaluation per t.  The noise of t is step_noise(seed, t) unless
+        given; every result stays on the device until the caller reads
+        it.  vlb_t is (B, T) ordered T-1..0."""
+        vlb, l_simple = [], []
+        for i, t in enumerate(self.chain_ts()):
+            t_b = torch.full((x.shape[0],), t, dtype=torch.int64,
+                             device=x.device)
+            eps = self._noise(noise, seed, i, t, x)
+            x_t = self.q_sample(x, t_b, eps)
+            eps_hat = self.eps_fn(x_t, t_b).float()
+            vlb.append(self.vlb_terms(x, x_t, t_b, eps_hat))
+            l_simple.append(l2_loss(eps, eps_hat).mean())
+        vlb_t = torch.stack(vlb, dim=1)
+        l_simple_t = torch.stack(l_simple)
+        prior = self.calc_prior(x)
+        return {"vlb_t": vlb_t, "prior": prior, "vlb": vlb_t.sum(dim=1) + prior,
+                "L_simple_t": l_simple_t, "L_simple": l_simple_t.sum()}

@@ -26,9 +26,15 @@ def fix_samples(samples: torch.Tensor) -> np.ndarray:
 
 
 def make_bulk_sampler(process, batch_size: int,
-                      early_stop: Optional[int] = None) -> Callable:
-    """sampler(seed) -> (x, z) for dDDPM, x for plain DDPM."""
+                      early_stop: Optional[int] = None,
+                      ddim_steps: Optional[int] = None,
+                      ddim_eta: float = 0.0) -> Callable:
+    """sampler(seed) -> (x, z) for dDDPM, x for plain DDPM.  ddim_steps
+    selects the strided DDIM sampler instead of the ancestral chain."""
     def sampler(seed: int):
+        if ddim_steps is not None:
+            return process.ddim_sample(batch_size, seed=seed,
+                                       num_steps=ddim_steps, eta=ddim_eta)
         return process.sample(batch_size, seed=seed, early_stop=early_stop)
     return sampler
 
@@ -40,10 +46,12 @@ def _sync(device: torch.device) -> None:
 
 def generate_samples(process, seed: int = 0, fid_samples: int = 50000,
                      batch_size: int = 192, early_stop: Optional[int] = None,
+                     ddim_steps: Optional[int] = None, ddim_eta: float = 0.0,
                      progress: bool = True
                      ) -> Tuple[np.ndarray, Optional[np.ndarray], Dict[str, float]]:
     """Generate >= fid_samples images; returns (samples, latents, timing)."""
-    sampler = make_bulk_sampler(process, batch_size, early_stop)
+    sampler = make_bulk_sampler(process, batch_size, early_stop, ddim_steps,
+                                ddim_eta)
     is_downsampled = isinstance(process, DownsampleDiffusion)
     n_batches = int(np.ceil(fid_samples / batch_size))
 

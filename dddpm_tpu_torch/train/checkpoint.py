@@ -79,6 +79,13 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState) -> TrainState:
     return state
 
 
+def load_step(ckpt_dir: str) -> int:
+    """The checkpoint's step, without reading its tensors (memory map)."""
+    blob = torch.load(os.path.join(os.path.abspath(ckpt_dir), _STATE_FILE),
+                      map_location="cpu", weights_only=True, mmap=True)
+    return int(blob["step"])
+
+
 def load_model_params(ckpt_dir: str, prefer_ema: bool = True
                       ) -> Dict[str, torch.Tensor]:
     """Eval-time load: the EMA weights when present, else the raw ones,

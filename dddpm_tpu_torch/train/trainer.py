@@ -27,6 +27,7 @@ from dddpm_tpu_torch.train.state import (
     create_train_state,
     make_train_step,
 )
+from dddpm_tpu_torch.utils import paths
 from dddpm_tpu_torch.utils.device import DeviceLike, resolve_device
 from dddpm_tpu_torch.utils.logging import RunLogger, generate_run_id
 from dddpm_tpu_torch.utils.rng import seed_everything
@@ -39,13 +40,16 @@ class Trainer:
     """Step-driven trainer for DDPM and dDDPM models."""
 
     def __init__(self, config: Dict, mute: bool = False,
-                 data_root: str = "./data/", wandb_project: str = "ddpm-test",
-                 seed: Optional[int] = 0, workdir: str = "./results",
+                 data_root: str = paths.DATA_DIR,
+                 wandb_project: str = "ddpm-test",
+                 seed: Optional[int] = 0, workdir: Optional[str] = None,
                  n_samples: int = 25, device: DeviceLike = None):
         self.seed = seed_everything(seed)
         self.device = resolve_device(device)
         self.mute = mute
-        self.workdir = workdir
+        # under utils/paths.py's directories unless a workdir is given
+        self.logging_dir = (paths.LOGGING_DIR if workdir is None
+                            else os.path.join(workdir, "logging"))
         self.project = wandb_project
         self.n_samples = n_samples
         self.n_rows = int(np.sqrt(n_samples))
@@ -96,7 +100,9 @@ class Trainer:
         self.run_id = config.get("wandb_id") or generate_run_id()
         config["wandb_id"] = self.run_id
         self.checkpoint_dir = os.path.join(
-            workdir, "checkpoints", f"{self.name}_{self.run_id}")
+            paths.CHECKPOINT_DIR if workdir is None
+            else os.path.join(workdir, "checkpoints"),
+            f"{self.name}_{self.run_id}")
         self.logger: Optional[RunLogger] = None
         self.timer = StepTimer(
             items_per_step=self.grad_accum * config["batch_size"])
@@ -241,7 +247,7 @@ class Trainer:
 
     def init_logging(self):
         self.logger = RunLogger(self.project, self.config,
-                                os.path.join(self.workdir, "logging"),
+                                self.logging_dir,
                                 self.run_id, mute=self.mute)
 
     def finalize(self):
@@ -259,9 +265,10 @@ class Trainer:
         return self.train_losses
 
 
-def setup_trainer(config: Dict, mute: bool = False, data_root: str = "./data/",
+def setup_trainer(config: Dict, mute: bool = False,
+                  data_root: str = paths.DATA_DIR,
                   wandb_project: str = "ddpm-test", seed: Optional[int] = 0,
-                  workdir: str = "./results", n_samples: int = 25,
+                  workdir: Optional[str] = None, n_samples: int = 25,
                   device: DeviceLike = None):
     """Factory mirroring reference trainers/wrapper.py:10-49; runs on the
     card unless device='cpu'."""

@@ -6,7 +6,8 @@ back to the CPU silently.
 """
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import torch
 
@@ -26,3 +27,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
     return dev
 
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """float32 matmuls and convs in full f32 (TF32 off for cuBLAS and
+    cuDNN) inside the block, whatever the global flags say; the flags
+    come back after.  (torch.backends.cudnn.flags would also switch
+    cuDNN off unless told otherwise.)"""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -9,6 +9,7 @@ need not have.)
 """
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -674,18 +675,20 @@ def test_probe_kernels_refuse_what_they_cannot_take(card):
                        torch.zeros(32, 288, device=card))
 
 
+SMALL_X2 = dict(model="dddpm", dataset="synthetic", image_size=256, T=50,
+                loss_type="simple", beta_schedule="linear", loss_flat="sum",
+                unet_chan=32, unet_dims=(1, 2), unet_dropout=0.0, unet_in=8,
+                n_downsamples=1, d_mode="convolutional_res",
+                u_mode="convolutional_res", d_dropout=0, d_chans=64,
+                d_n_blocks=2, u_n_blocks=2, ae_loss=True, t_rec_max=5,
+                force_latent=True, compute_dtype="bfloat16")
+
+
 def _small_x2(card, **selectors):
     """A small x2 dDDPM at 256^2 (latent 128^2 x 8, UNet 32 wide with
     attention sites of 16384 and 4096 tokens; decoder blocks cio 64 /
     cm 32, which the fused ConvResBlock takes), bf16, on the card."""
-    cfg = dict(model="dddpm", dataset="synthetic", image_size=256, T=50,
-               loss_type="simple", beta_schedule="linear", loss_flat="sum",
-               unet_chan=32, unet_dims=(1, 2), unet_dropout=0.0, unet_in=8,
-               n_downsamples=1, d_mode="convolutional_res",
-               u_mode="convolutional_res", d_dropout=0, d_chans=64,
-               d_n_blocks=2, u_n_blocks=2, ae_loss=True, t_rec_max=5,
-               force_latent=True, compute_dtype="bfloat16", **selectors)
-    net, _, init_fn, cfg = build_model(cfg, device=card)
+    net, _, init_fn, cfg = build_model(dict(SMALL_X2, **selectors), device=card)
     init_fn(0)
     return net, cfg
 
@@ -758,3 +761,78 @@ def test_attention_width_on_card(card):
         del net
     assert torch.isfinite(outs[0]).all()
     _close(outs[0], outs[1], torch.bfloat16)
+
+
+def test_ddim_chain_attention_selector_on_card(card):
+    """A 5-step DDIM chain (eta 0.5) of the small x2 model in f32 from one
+    seed: every step with use_pallas_attention True (K1a/K1b) equals the
+    step with it False from the same state; the whole chain with True
+    launches K1a and K1b at each site of each step, and its samples are
+    finite and in range."""
+    procs = []
+    for value in (True, False):
+        net, proc, init_fn, _ = build_model(
+            dict(SMALL_X2, compute_dtype="float32", use_pallas_attention=value),
+            device=card)
+        init_fn(0)
+        procs.append(proc)
+    kern, plain = procs
+    taus = kern.ddim_taus(5)
+    coefs = kern.ddim_coefficients(taus, 0.5)
+    img = kern.init_latent(2, seed=6)
+    with torch.no_grad():
+        for i, t in enumerate(taus):
+            z = torch.randn(img.shape, generator=torch.Generator(
+                device=card).manual_seed(t), device=card)
+            want = plain.ddim_step(img, t, coefs[i], z)
+            _close(kern.ddim_step(img, t, coefs[i], z), want, torch.float32)
+            img = want
+    before = dict(ab.LAUNCHES)
+    x, latent = kern.ddim_sample(2, seed=6, num_steps=5, eta=0.5)
+    torch.cuda.synchronize()
+    launched = {k: ab.LAUNCHES[k] - before[k] for k in before}
+    assert launched["attn_ctx"] == launched["attn_out"] > 0, launched
+    assert launched["attn_ctx"] % 5 == 0 and launched["attn_1pass"] == 0
+    assert x.shape == (2, 256, 256, 3) and latent.shape == (2, 128, 128, 8)
+    assert torch.isfinite(x).all() and float(x.abs().max()) <= 1.0
+
+
+def test_inception_on_card_matches_cpu(card):
+    """The extractor on the card (f32, TF32 off inside, whatever the
+    global flags say, and the flags restored) against the CPU, the same
+    random-init weights, all three heads at 1e-3 of max |want|; and the
+    pairwise-distance tile against float64 numpy at 1e-4 relative, on
+    rows with pool3's large common offset, where the form cancels: the
+    same function without its full-f32 pin (a TF32 product) misses the
+    limit there."""
+    import contextlib
+    from unittest import mock
+
+    from dddpm_tpu_torch.evaluation import prec_recall
+    from dddpm_tpu_torch.evaluation.inception import FeatureExtractor
+    from dddpm_tpu_torch.evaluation.prec_recall import pairwise_sq_dists
+
+    imgs = np.random.RandomState(0).randint(0, 255, (6, 64, 64, 3), np.uint8)
+    want = FeatureExtractor(batch_size=4, device="cpu")(imgs)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = FeatureExtractor(batch_size=4, device=card)(imgs)
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+        rng = np.random.RandomState(1)
+        a, b = 1 + 0.3 * rng.randn(300, 2048), 1 + 0.3 * rng.randn(200, 2048)
+        ta, tb = torch.from_numpy(a).to(card), torch.from_numpy(b).to(card)
+        d = pairwise_sq_dists(ta, tb).cpu().numpy()
+        assert torch.backends.cuda.matmul.allow_tf32
+        with mock.patch.object(prec_recall, "full_f32", contextlib.nullcontext):
+            d_tf32 = pairwise_sq_dists(ta, tb).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for k in ("pool3", "spatial", "softmax"):
+        err = float(np.abs(got[k] - want[k]).max())
+        assert err <= 1e-3 * float(np.abs(want[k]).max()), (k, err)
+    exact = ((a[:, None] - b[None]) ** 2).sum(-1)
+    assert float(np.abs(d - exact).max()) <= 1e-4 * float(exact.max())
+    assert float(np.abs(d_tf32 - exact).max()) > 1e-4 * float(exact.max())
