@@ -80,12 +80,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    holds the reference batch against itself; then the Inception heads
    on the card against the CPU and the pairwise-distance tile against
    float64 numpy.  It prints one {"eval_path": ...} line.
+12. the int8 serving mode (after phase 11, before phase 10): Q1's ptxas
+   line (no spill allowed); Q1 (csrc/int8_conv.cu) against its plain
+   version, bit for bit, at the x2 UNet's five quantized shape classes at
+   B = 8 with and without a skip operand and at 128^2 c128 and 64^2 c256
+   at B = 192, timed against F.conv2d bf16 channels_last (library_ms: the
+   call the site makes without int8); generate_main --quant-conv int8 on
+   phase 11's x2 checkpoint (trajectory calibration at batch 4, the chain
+   cut to CHAIN_STEPS steps at B = 8, the decode) with the counters zeroed
+   just before and read just after: Q1 30 launches (32 operands) per UNet
+   eval, K1a/K1b 5 + 5 per eval, K2 3; two profiled chain steps at B =
+   192, bf16 / int8 / bf16; one f32 quantized UNet eval on the card
+   against the CPU's plain path on the same calibrated buffers; the
+   subpixel transposed conv (ops/convt.py) against F.conv_transpose2d at
+   the x2 Upsamples' shapes at B = 8 and 192, both timed.  It prints one
+   {"int8_path": ...} line.
 
 The last three lines are a JSON object with the kernels' numbers (one
 entry per kernel and path, its launches counted on that path's own run),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 import contextlib
+import functools
 import json
 import os
 import sys
@@ -106,6 +122,7 @@ from dddpm_tpu_torch import (
 from dddpm_tpu_torch.evaluation.inception import FeatureExtractor
 from dddpm_tpu_torch.evaluation import prec_recall
 from dddpm_tpu_torch.evaluation.prec_recall import pairwise_sq_dists
+from dddpm_tpu_torch.models.blocks import Conv2d
 from dddpm_tpu_torch.models.ddpm import draw_t, fold_seed
 from dddpm_tpu_torch.models.factory import build_model
 from dddpm_tpu_torch.models.resample import ConvResBlock
@@ -114,7 +131,9 @@ from dddpm_tpu_torch.ops import attention_block as ab
 from dddpm_tpu_torch.ops import conv3x3 as c3
 from dddpm_tpu_torch.ops import convres as cr
 from dddpm_tpu_torch.ops import linear_attention as la
+from dddpm_tpu_torch.ops import quant as qt
 from dddpm_tpu_torch.ops import winograd as wg
+from dddpm_tpu_torch.ops.convt import conv_transpose_2x_subpixel
 from dddpm_tpu_torch.ops.math import mish
 from dddpm_tpu_torch.probes import attention_ablation as k1_ablation
 from dddpm_tpu_torch.probes import attention_ceiling as probe_p1
@@ -129,6 +148,7 @@ from dddpm_tpu_torch.probes._util import (
     card_line,
     cuda_ms,
 )
+from dddpm_tpu_torch.quantize import calibrate_conv_quant
 from dddpm_tpu_torch.sample import generate_samples
 from dddpm_tpu_torch.train import checkpoint
 from dddpm_tpu_torch.train.state import (
@@ -158,8 +178,8 @@ ATTN_SITES = [(16384, 128), (4096, 256), (1024, 256), (1024, 256), (4096, 128)]
 CONVRES_DECODE = [(128, 128, "up"), (256, 256, None), (256, 256, None)]
 CONVRES_DOWN = (256, 256, "down")
 KERNELS = ["attention_block", "convres_fwd", "convres_bwd", "conv3x3",
-           "winograd", "linear_attention", "probe_attention", "probe_copy",
-           "probe_convres", "probe_cmajor_conv"]
+           "winograd", "linear_attention", "int8_conv", "probe_attention",
+           "probe_copy", "probe_convres", "probe_cmajor_conv"]
 REPLACES = {
     "attn_ctx": "dddpm_tpu/ops/pallas/attention_block.py:148",
     "attn_out": "dddpm_tpu/ops/pallas/attention_block.py:210",
@@ -170,6 +190,8 @@ REPLACES = {
     "winograd": "dddpm_tpu/ops/pallas/winograd.py:49",
     "lin_ctx": "dddpm_tpu/ops/pallas/linear_attention.py:51",
     "lin_out": "dddpm_tpu/ops/pallas/linear_attention.py:86",
+    # not a Pallas kernel: the s8 x s8 -> s32 conv XLA computes there
+    "int8_conv": "dddpm_tpu/ops/quant.py:93",
     "probe_attn_ctx": "scripts/probe_attention_ceiling.py:52",
     "probe_attn_out": "scripts/probe_attention_ceiling.py:131",
     "probe_copy": "scripts/probe_attention_writeback.py:38",
@@ -186,6 +208,7 @@ SOURCES = {"attn_ctx": "dddpm_tpu_torch/csrc/attention_block.cu",
            "winograd": "dddpm_tpu_torch/csrc/winograd.cu",
            "lin_ctx": "dddpm_tpu_torch/csrc/linear_attention.cu",
            "lin_out": "dddpm_tpu_torch/csrc/linear_attention.cu",
+           "int8_conv": "dddpm_tpu_torch/csrc/int8_conv.cu",
            "probe_attn_ctx": "dddpm_tpu_torch/csrc/probe_attention.cu",
            "probe_attn_out": "dddpm_tpu_torch/csrc/probe_attention.cu",
            "probe_copy": "dddpm_tpu_torch/csrc/probe_copy.cu",
@@ -537,7 +560,7 @@ def phase_convres_bwd(results):
 
 
 COUNTERS = (ab.LAUNCHES, cr.LAUNCHES, c3.LAUNCHES, wg.LAUNCHES, la.LAUNCHES,
-            probe_p1.LAUNCHES, probe_p2.LAUNCHES, probe_p3.LAUNCHES,
+            qt.LAUNCHES, probe_p1.LAUNCHES, probe_p2.LAUNCHES, probe_p3.LAUNCHES,
             probe_p4.LAUNCHES)
 PROBES = (probe_p1, probe_p2, probe_p3, probe_p4)
 
@@ -601,7 +624,7 @@ def phase_main_path(results):
 
 def _category(name: str) -> str:
     n = name.lower()
-    for key, cat in (("lin_", "K4 linear attention"),
+    for key, cat in (("int8_conv", "Q1 int8_conv"), ("lin_", "K4 linear attention"),
                      ("block_1p", "K1c attn_1pass"),
                      ("ctx_partial", "K1a attn_ctx"), ("ctx_reduce", "K1a attn_ctx"),
                      ("ctx_mma", "K1a attn_ctx"), ("out_mma", "K1b attn_out"),
@@ -665,7 +688,7 @@ def device_profile(run, steps: int, label: str):
     log("  top kernels:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {us / 1e3 / steps:7.3f} ms/step  {name[:100]}")
-    return by_cat, total
+    return by_cat, total, busy / 1e3 / steps, 1 - busy / window
 
 
 # the main path's batch: bench.py:_sample_config(192), the bulk sampler
@@ -682,7 +705,7 @@ def phase_profile(process, steps: int = 3):
         prof = device_profile(lambda: process.p_sample_chain(z, ts, seed=11), n,
                               f"{n} chain steps at B={bsz} (bf16)")
         if prof is not None:
-            by_cat, total = prof
+            by_cat, total = prof[:2]
             k1 = sum(by_cat.get(k, 0.0) for k in ("K1a attn_ctx", "K1b attn_out"))
             log(f"  K1 (K1a + K1b) at B={bsz}: {k1 / 1e3 / n:.3f} ms/step, "
                 f"{k1 / total:.2%} of device time")
@@ -1461,6 +1484,243 @@ def phase_eval(ckpt_x3: str, seed_x3: int):
     print(json.dumps({"eval_path": out}), flush=True)
 
 
+# phase 12: the int8 serving mode (--quant-conv int8).  The x2 UNet's
+# quantized 3x3 convs by shape class (H = W, C, single-operand launches,
+# two-operand launches) of one UNet eval: 32 operands in 30 launches, as
+# the decoder's 32^2 and 16^2 skip seams quantize x and the skip apart
+# but run them in one launch
+INT8_CLASSES = [(128, 128, 4, 0), (64, 256, 3, 0), (64, 128, 3, 0),
+                (32, 256, 7, 1), (16, 256, 11, 1)]
+INT8_LAUNCHES = sum(n1 + n2 for _, _, n1, n2 in INT8_CLASSES)          # 30
+INT8_OPERANDS = sum(n1 + 2 * n2 for _, _, n1, n2 in INT8_CLASSES)      # 32
+# calibration's eps evals at T = 1000, n_points 16: x_init and the 15
+# chain snapshots (every 62 steps) with t_last - 1 >= 0
+INT8_CAL_EVALS = 16
+# the x2 UNet's three Upsamples (H = W of the input, C)
+UPSAMPLES = [(16, 256), (32, 256), (64, 128)]
+PER[("int8_conv", "x2_sample_int8")] = (
+    f"x2 chain step at B={B} with --quant-conv int8: {INT8_LAUNCHES} launches, "
+    f"{INT8_OPERANDS} operands (" + ", ".join(
+        f"{n1 + 2 * n2} at {hw}^2 c{c}" for hw, c, n1, n2 in INT8_CLASSES)
+    + "); library_ms: F.conv2d in bf16 on channels_last, one call per launch")
+
+
+def int8_inputs(hw, c, dtype, gen, bsz, skip):
+    """((x, qw, amax), kwargs) of one Q1 launch at a quantized conv's
+    shape: x ~ 2 N(0, 1), kaiming-scale weights, amax below max |x| (a
+    few values saturate), a bias, and with `skip` a second operand."""
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")
+    cl = torch.channels_last
+    x = (2.0 * r(bsz, c, hw, hw)).to(dtype).contiguous(memory_format=cl)
+    w = r(c, c, 3, 3) / (9 * c) ** 0.5
+    kw = {"bias": 0.1 * r(c)}
+    if skip:
+        sk = (3.0 * r(bsz, c, hw, hw)).to(dtype).contiguous(memory_format=cl)
+        w2 = r(c, c, 3, 3) / (9 * c) ** 0.5
+        kw.update(skip=sk, qw_skip=qt.prepare_weight(w2),
+                  amax_skip=sk.float().abs().amax() * 0.9)
+        w = torch.cat([w, w2], dim=1)
+    return (x, qt.prepare_weight(w[:, :c]), x.float().abs().amax() * 0.9), kw, w
+
+
+def phase_int8_kernel(results) -> dict:
+    """Q1's ptxas line, Q1 against its plain version (bit for bit) at the
+    five shape classes at B, with and without a skip operand, and at
+    128^2 c128 and 64^2 c256 at B_BULK; Q1, its plain version and
+    F.conv2d bf16 channels_last (the call the site makes without int8)
+    timed per launch kind at B."""
+    ptxas_check("int8_conv", "int8_conv_kernel")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    dt, out = torch.bfloat16, {}
+    for hw, c, n1, n2 in INT8_CLASSES:
+        for skip, n in ((False, n1), (True, n2)):
+            args, kw, w = int8_inputs(hw, c, dt, gen, B, skip)
+            got = qt.int8_conv_q(*args, **kw)
+            want = qt.plain(*args, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            assert torch.equal(got, want), (hw, c, skip, err)
+            # the float site: one conv over x (and the skip, concatenated
+            # beforehand) with the bias
+            xin = (torch.cat([args[0], kw["skip"]], dim=1) if skip else args[0]
+                   ).contiguous(memory_format=torch.channels_last)
+            wb, bb = w.to(dt), kw["bias"].to(dt)
+            ms = cuda_ms(lambda: qt.int8_conv_q(*args, **kw), 50, reps=3)
+            lib = cuda_ms(lambda: F.conv2d(xin, wb, bb, padding=1), 50, reps=3)
+            pms = cuda_ms(lambda: qt.plain(*args, **kw), 2)
+            cost = qt.cost(B, hw, hw, c, c, 2, operands=2 if skip else 1)
+            bnd, by = bound_ms(cost, torch.int8)
+            accumulate(results, "int8_conv", "x2_sample_int8", n, ms, pms, bnd,
+                       cost, err, library_ms=lib)
+            key = f"{hw}^2 c{c}{' +skip' if skip else ''}"
+            out[key] = {"launches_per_eval": n, "ms": ms, "plain_ms": pms,
+                        "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+                        "library_over_q1": lib / ms}
+            log(f"  Q1 {key} B={B}: {ms * 1e3:.1f} us (bound {bnd * 1e3:.1f} us, "
+                f"{by}; {bnd / ms:.1%}), plain {pms:.2f} ms, F.conv2d bf16 "
+                f"{lib * 1e3:.1f} us: int8 {lib / ms:.2f}x the bf16 conv; "
+                f"max_abs_err {err} [{card_line()}]")
+            del args, kw, w, xin, got, want
+    results[("int8_conv", "x2_sample_int8")]["dtype"] = torch.int8
+    for hw, c in ((128, 128), (64, 256)):
+        args, kw, w = int8_inputs(hw, c, dt, gen, B_BULK, False)
+        got = qt.int8_conv_q(*args, **kw)
+        assert torch.equal(got, qt.plain(*args, **kw)), (hw, c, B_BULK)
+        ms = cuda_ms(lambda: qt.int8_conv_q(*args, **kw), 10, reps=3)
+        wb, bb = w.to(dt), kw["bias"].to(dt)
+        lib = cuda_ms(lambda: F.conv2d(args[0], wb, bb, padding=1), 10, reps=3)
+        bnd, by = bound_ms(qt.cost(B_BULK, hw, hw, c, c, 2), torch.int8)
+        out[f"{hw}^2 c{c} B={B_BULK}"] = {"ms": ms, "library_ms": lib,
+                                          "bound_ms": bnd, "bound_by": by}
+        log(f"  Q1 {hw}^2 c{c} B={B_BULK}: equal to its plain version; "
+            f"{ms:.3f} ms (bound {bnd:.3f}, {by}), F.conv2d bf16 {lib:.3f} ms")
+        del args, kw, w, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_int8(results):
+    """The int8 serving mode: Q1 against its plain version and timed;
+    generate_main --quant-conv int8 on phase 11's x2 checkpoint
+    (trajectory calibration at batch 4, the chain cut to CHAIN_STEPS
+    steps at B, the decode) with the counters zeroed; two profiled chain
+    steps at B_BULK, int8 against bf16; one f32 quantized UNet eval on
+    the card against the CPU's plain path on the same buffers; the
+    subpixel transposed conv against F.conv_transpose2d."""
+    log("phase 12: int8 serving (--quant-conv int8)")
+    out = {"card": card_line(), "q1": phase_int8_kernel(results)}
+
+    ckpt_x2 = os.path.join(EVAL_DIR, "x2_ddim")      # phase 11's
+    T = X2_CONFIG["T"]
+    cut = functools.partial(generate_samples, early_stop=T - CHAIN_STEPS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    with mock.patch.object(generate_main, "generate_samples", cut):
+        samples, latents, timing = generate_main.main(
+            ["--checkpoint", ckpt_x2, "--quant-conv", "int8",
+             "--quant-calib", "trajectory", "--quant-calib-batch", "4",
+             "--fid-samples", str(B), "--batch-size", str(B),
+             "--out", os.path.join(WORKDIR, "int8", "samples"),
+             "--latent-out", os.path.join(WORKDIR, "int8", "samples_latent")])
+    torch.cuda.synchronize()
+    launched = counts()
+    wall = time.time() - t0
+    evals = INT8_CAL_EVALS + CHAIN_STEPS
+    log(f"  generate --quant-conv int8: calibration (trajectory, batch 4, "
+        f"{T} steps) and {CHAIN_STEPS} chain steps + decode at B={B}: "
+        f"{wall:.2f} s in all, sampling {timing['total_s']:.3f} s "
+        f"[{card_line()}]; launches {launched}")
+    assert samples.shape == (1, B, 256, 256, 3), samples.shape
+    assert latents.shape == (1, B, 128, 128, 8), latents.shape
+    assert np.isfinite(samples).all() and np.isfinite(latents).all()
+    assert samples.min() >= 0.0 and samples.max() <= 255.0
+    want = {"int8_conv": INT8_LAUNCHES * evals,
+            "attn_ctx": 5 * (T + evals), "attn_out": 5 * (T + evals),
+            "convres_fwd": 3}
+    assert {k: launched[k] for k in want} == want, (launched, want)
+    assert not any(v for k, v in launched.items() if k not in want), launched
+    results[("int8_conv", "x2_sample_int8")]["launches"] = launched["int8_conv"]
+    out["generate"] = {"calibration": "trajectory, batch 4", "chain_steps": CHAIN_STEPS,
+                       "batch": B, "wall_s": wall, "sampling_s": timing["total_s"],
+                       "launches": {k: launched[k] for k in want}}
+
+    # two chain steps at the bulk batch, bf16 against int8, same weights
+    cfg_q = dict(X2_CONFIG, conv_quant="int8")
+    net_q, proc_q, init_q, _ = build_model(cfg_q)
+    init_q(0)
+    calibrate_conv_quant(cfg_q, net_q, proc_q, batch_size=4, n_points=4,
+                         mode="noise")
+    # the layout Q1's wrapper gets: an NCHW-contiguous input is copied to NHWC
+    layouts = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: layouts.append(
+        a[0].is_contiguous(memory_format=torch.channels_last)))
+        for m in net_q.modules() if isinstance(m, Conv2d) and m.quant_sites]
+    with torch.no_grad():
+        proc_q.eps_fn(proc_q.init_latent(B, seed=3),
+                      torch.full((B,), 500, device="cuda"))
+    for h in hooks:
+        h.remove()
+    log(f"  Q1 inputs already channels_last: {sum(layouts)} of {len(layouts)} "
+        f"launches of a UNet eval (the wrapper copies the rest to NHWC)")
+    out["q1_inputs_channels_last"] = [sum(layouts), len(layouts)]
+    net_b, proc_b, init_b, _ = build_model(X2_CONFIG)
+    init_b(0)
+    out["profile"] = {}
+    for label, proc in (("bf16", proc_b), ("int8", proc_q), ("bf16 again", proc_b)):
+        z = proc.init_latent(B_BULK, seed=11)
+        ts = [900, 899]
+        proc.p_sample_chain(z, ts, seed=11)
+        prof = device_profile(lambda: proc.p_sample_chain(z, ts, seed=11), 2,
+                              f"2 chain steps at B={B_BULK} ({label})")
+        if prof is not None:
+            by_cat, total, busy, idle = prof
+            q1 = by_cat.get("Q1 int8_conv", 0.0) / 1e3 / 2
+            out["profile"][label] = {"device_busy_ms": busy, "idle_share": idle,
+                                     "q1_ms": q1, "q1_share": q1 * 2e3 / total,
+                                     "gemm_conv_ms": by_cat.get("gemm/conv", 0.0) / 2e3}
+            log(f"  {label} at B={B_BULK}: device busy {busy:.2f} ms/step, idle "
+                f"{idle:.3f}, Q1 {q1:.3f} ms/step ({q1 * 2e3 / total:.1%})")
+        del z
+        torch.cuda.empty_cache()
+    del net_b, proc_b
+
+    # one f32 quantized UNet eval on the card against the CPU's plain path,
+    # the calibrated buffers of net_q on both
+    cfg32 = dict(cfg_q, compute_dtype="float32")
+    net_g, proc_g, _, _ = build_model(cfg32)
+    net_c, proc_c, _, _ = build_model(cfg32, device="cpu")
+    state = {k: v.float().cpu() for k, v in net_q.state_dict().items()}
+    net_g.load_state_dict(state)
+    net_c.load_state_dict(state)
+    del net_q, proc_q
+    gen = torch.Generator().manual_seed(4)
+    z = torch.randn((1, 128, 128, 8), generator=gen)
+    t = torch.full((1,), 500, dtype=torch.int64)
+    reset_counts()
+    with torch.no_grad():
+        eps_g = proc_g.eps_fn(z.cuda(), t.cuda()).cpu()
+    assert counts()["int8_conv"] == INT8_LAUNCHES, counts()
+    with torch.no_grad():
+        eps_c = proc_c.eps_fn(z, t)
+    scale = max(1.0, float(eps_c.abs().max()))
+    err = float((eps_g - eps_c).abs().max())
+    rel = float((eps_g - eps_c).norm() / eps_c.norm())
+    log(f"  f32 quantized UNet, card against the CPU's plain path: max_abs_err "
+        f"{err:.3e} (tol {1e-1 * scale:.3e}), relative L2 {rel:.3e} (tol 5e-2): "
+        f"the float ops before each quantized conv round differently and the "
+        f"flips cascade, as on the CPU against JAX (tests/test_torch_quant.py)")
+    assert np.isfinite(err) and rel <= 5e-2 and err <= 1e-1 * scale
+    out["card_vs_cpu_f32"] = {"max_abs_err": err, "relative_l2": rel}
+    del net_g, net_c, proc_g, proc_c
+
+    # the subpixel transposed conv against F.conv_transpose2d (the
+    # Upsample's call), bf16 channels_last, at the x2 Upsamples' shapes
+    out["subpixel"] = {}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for bsz in (B, B_BULK):
+        for hw, c in UPSAMPLES:
+            r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")
+            x = r(bsz, c, hw, hw).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            w = (r(c, c, 4, 4) / (4 * c) ** 0.5).to(torch.bfloat16)
+            b = (0.1 * r(c)).to(torch.bfloat16)
+            ref = F.conv_transpose2d(x, w, b, 2, 1)
+            err = check_close(f"subpixel B={bsz} {hw}^2 c{c}",
+                              conv_transpose_2x_subpixel(x, w, b), ref,
+                              torch.bfloat16)
+            iters = 20 if bsz == B else 5
+            sub_ms = cuda_ms(lambda: conv_transpose_2x_subpixel(x, w, b), iters, reps=3)
+            ct_ms = cuda_ms(lambda: F.conv_transpose2d(x, w, b, 2, 1), iters, reps=3)
+            out["subpixel"][f"B={bsz} {hw}^2 c{c}"] = {
+                "subpixel_ms": sub_ms, "conv_transpose_ms": ct_ms,
+                "max_abs_err": err}
+            log(f"  Upsample B={bsz} {hw}^2 c{c}: subpixel {sub_ms:.3f} ms, "
+                f"F.conv_transpose2d {ct_ms:.3f} ms")
+            del x, ref
+    torch.cuda.empty_cache()
+    print(json.dumps({"int8_path": out}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1500,6 +1760,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_against_cpu()
     phase_eval(ckpt_x3, seed_x3)
+    phase_int8(results)
     phase_probes(results)
     log(f"chip_smoke: {time.time() - t0:.1f} s after the build started")
 
@@ -1513,7 +1774,7 @@ def main() -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": ("bytes" if r["bytes"] / HBM_BYTES_PER_S
-                     >= r["flops"] / PEAK_FLOPS[torch.bfloat16]
+                     >= r["flops"] / PEAK_FLOPS[r.get("dtype", torch.bfloat16)]
                      else "operations"),
         "library_ms": r["library_ms"],
         **{k: r[k] for k in ("identity_ms", "graph_ms", "library_graph_ms",

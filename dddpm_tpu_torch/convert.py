@@ -11,7 +11,11 @@ the owner-typed rules of _CHILDREN; leaves by the kind of module:
   transpose of a correlation; tests/test_torch_unet.py pins it);
 - biases, GroupNorm scale/bias and ChannelLayerNorm g/b map straight.
 
-The qkv columns keep their (3, heads, dim_head) order.
+The qkv columns keep their (3, heads, dim_head) order.  A tree with a
+'params' level may also hold the int8 mode's 'quant' collection
+(`amax_x` / `amax_skip` under each quantized Conv_0): it maps onto the
+amax buffers of the same convs.  Amax buffers the tree does not hold
+come back as 0, the uncalibrated value.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 from torch import nn
 
 from dddpm_tpu_torch.models import blocks, resample, unet
+from dddpm_tpu_torch.models.blocks import quant_buffers
 
 # JAX child name -> torch attribute path, by the type of the torch owner
 # (checked in order; first match wins)
@@ -85,6 +90,8 @@ def jax_to_state_dict(tree, net: nn.Module) -> Dict[str, torch.Tensor]:
     want = net.state_dict()
     found: dict = {}
     _walk(tree.get("params", tree), net, "", found)
+    if "params" in tree and "quant" in tree:
+        _walk(tree["quant"], net, "", found)
     out = {}
     for key, (name, owner, arr) in found.items():
         if key not in want:
@@ -95,6 +102,8 @@ def jax_to_state_dict(tree, net: nn.Module) -> Dict[str, torch.Tensor]:
             raise ValueError(f"{key}: shape {tuple(t.shape)} != "
                              f"{tuple(want[key].shape)}")
         out[key] = t
+    for key in quant_buffers(net):
+        out.setdefault(key, torch.zeros_like(want[key]))
     missing = sorted(set(want) - set(out))
     if missing:
         raise KeyError(f"no JAX params for {missing[:5]}")

@@ -137,6 +137,28 @@ def make_synthetic(image_size: int, channels: int = 3, n: int = 512,
     return imgs, labels
 
 
+LABEL_MAPS = {
+    "cifar10": ["airplane", "automobile", "bird", "cat", "deer", "dog",
+                "frog", "horse", "ship", "truck"],
+    "mnist": [str(i) for i in range(10)],
+    "celeba": ["female", "male"],
+    "celeba_hq": ["female", "male"],
+    "celeba_hq_64": ["female", "male"],
+    "synthetic": ["a", "b"],
+}
+
+
+def get_label_map(dataset: str) -> List[str]:
+    """The class names of a dataset's labels; raises for a dataset with
+    none (cifar100's come from the dataset's own meta file)."""
+    if dataset == "cifar100":
+        raise ValueError("cifar100 label names come from the dataset's "
+                         "meta file; read cifar-100-python/meta")
+    if dataset not in LABEL_MAPS:
+        raise ValueError(f"Dataset {dataset} has no label map")
+    return LABEL_MAPS[dataset]
+
+
 def get_color_channels(dataset: str) -> int:
     if dataset in ("cifar10", "cifar100", "celeba", "celeba_hq",
                    "celeba_hq_64", "synthetic"):

@@ -3,16 +3,20 @@ generate_model_samples.py):
 
     python -m dddpm_tpu_torch.generate_main --checkpoint <dir> \
         [--fid-samples 50000] [--batch-size 192] [--out results/samples] \
-        [--ddim-steps S [--ddim-eta E]] [--device cpu]
+        [--ddim-steps S [--ddim-eta E]] [--quant-conv int8
+        [--quant-calib trajectory|noise] [--quant-calib-batch 4]]
+        [--device cpu]
 
 Loads a checkpoint of the port (the EMA weights when the run kept an
 EMA, else the raw weights), samples ceil(fid_samples / batch_size)
 batches, prints the timing lines of the JAX script and saves the
 (n_batches, B, H, W, C) [0, 255] samples npy (and the latent npy for
 dDDPM) under the checkpoint's name.  Runs on the CUDA card unless
---device cpu is given.  The JAX script's --chain-segments (a TPU-runtime
-workaround) and --prng-impl have no counterpart; its int8 flags are not
-ported.
+--device cpu is given.  --quant-conv int8 rebuilds the model in the
+W8A8 serving mode (ops/quant.py), loads the same weights and calibrates
+the activation scales for this checkpoint (quantize.py) before
+sampling.  The JAX script's --chain-segments (a TPU-runtime workaround)
+and --prng-impl have no counterpart.
 """
 import argparse
 import json
@@ -21,23 +25,28 @@ import os
 import numpy as np
 
 from dddpm_tpu_torch.models.factory import build_model
+from dddpm_tpu_torch.quantize import load_float_weights, maybe_calibrate
 from dddpm_tpu_torch.sample import generate_samples
 from dddpm_tpu_torch.train import checkpoint as ckpt
 from dddpm_tpu_torch.utils import paths
 
 
-def load_eval_model(ckpt_dir: str, device=None, batch_size=None):
+def load_eval_model(ckpt_dir: str, device=None, batch_size=None,
+                    conv_quant=None):
     """(net, process, config) of a checkpoint, with the weights an
     evaluation takes: the EMA weights when ema_decay > 0, else the raw
     ones (a run without an EMA keeps its initial weights in the EMA
-    slot)."""
+    slot).  conv_quant='int8' builds the model in the int8 serving mode
+    on those weights, its activation scales not yet calibrated."""
     config = ckpt.load_config(ckpt_dir)
     if "unet_dims" in config:
         config["unet_dims"] = tuple(config["unet_dims"])
     if batch_size is not None:
         config["batch_size"] = batch_size
+    if conv_quant is not None:
+        config["conv_quant"] = conv_quant
     net, process, _, config = build_model(config, device)
-    net.load_state_dict(ckpt.load_model_params(
+    load_float_weights(net, ckpt.load_model_params(
         ckpt_dir, prefer_ema=config.get("ema_decay", 0) > 0))
     return net, process, config
 
@@ -54,13 +63,33 @@ def main(argv=None):
                    help="use strided DDIM sampling with this many steps "
                         "instead of the full ancestral chain")
     p.add_argument("--ddim-eta", type=float, default=0.0)
+    p.add_argument("--quant-conv", default="none", choices=["none", "int8"],
+                   help="opt-in W8A8 quantized conv serving mode "
+                        "(ops/quant.py): the 3x3 convs the JAX package's "
+                        "shape gate admits run as s8 convs with calibrated "
+                        "activation scales. Changes numerics (int8 "
+                        "rounding); default off")
+    p.add_argument("--quant-calib", default="trajectory",
+                   choices=["trajectory", "noise"],
+                   help="activation-scale calibration: 'trajectory' runs "
+                        "a reverse chain with quantization off and observes "
+                        "real chain states (the default); 'noise' observes "
+                        "N(0,1) latents only (cheap bootstrap)")
+    p.add_argument("--quant-calib-batch", type=int, default=4)
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the plain PyTorch path)")
     args = p.parse_args(argv)
 
-    _, process, config = load_eval_model(args.checkpoint, args.device,
-                                         args.batch_size)
+    quant = None if args.quant_conv == "none" else args.quant_conv
+    net, process, config = load_eval_model(args.checkpoint, args.device,
+                                           args.batch_size, quant)
+    if quant is not None:
+        maybe_calibrate(config, net, process,
+                        batch_size=args.quant_calib_batch,
+                        mode=args.quant_calib, seed=args.seed + 1)
+        print(f"conv_quant={args.quant_conv}: activation scales "
+              f"calibrated ({args.quant_calib} mode)")
     step = ckpt.load_step(args.checkpoint)
 
     name = os.path.basename(os.path.normpath(args.checkpoint))

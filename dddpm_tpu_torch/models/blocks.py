@@ -9,8 +9,9 @@ statistics and the time embedding stay float32.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,25 +23,93 @@ from dddpm_tpu_torch.ops.attention_block import (
     reference_impl,
 )
 from dddpm_tpu_torch.ops.math import mish
+from dddpm_tpu_torch.ops.quant import (
+    int8_conv_q,
+    observed_amax,
+    prepare_weight,
+    quant_conv_wins,
+)
 
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d that runs in `compute_dtype` with float32 parameters,
     as a flax nn.Conv with dtype= does.  The counterpart of the JAX
     package's nn.Conv, Conv3x3Params and ConvParams1x1 (the last two
-    take the concat-free skip operand)."""
+    take the concat-free skip operand).
+
+    With quant='int8' (the opt-in W8A8 serving mode, ops/quant.py) each
+    operand of a 3x3 conv that `quant_conv_wins` admits runs as the s8
+    conv, with a calibrated absmax held in the buffer `amax_x` (x, or
+    the first `split` input channels when the conv takes a skip operand)
+    or `amax_skip` (the skip operand, the channels after them): 0 until
+    calibrated, saved in the state_dict.  `quant_mode` is 'serve', or
+    'calibrate' (raise the amax with each input first, then run the s8
+    conv with it) or 'off' (the float path on the same weights); see
+    `quant_mode` below.  The s8 weights are made once and kept until the
+    weight changes.  Forward only: the s8 conv has no gradient."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int = 1, bias: bool = True,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, quant: Optional[str] = None,
+                 split: Optional[int] = None):
         super().__init__(in_features, features, kernel, stride,
                          (kernel - 1) // 2, bias=bias)
         self.compute_dtype = compute_dtype
+        if quant not in (None, "int8"):
+            raise ValueError(f"quant must be 'int8' or None, got {quant!r}")
+        self.split = split
+        self.quant_mode = "serve"
+        self.quant_sites = []
+        if quant == "int8" and kernel == 3:
+            halves = ([("amax_x", in_features)] if split is None else
+                      [("amax_x", split), ("amax_skip", in_features - split)])
+            gated = [quant_conv_wins(3, 0, cin, features, stride)
+                     for _, cin in halves]
+            if any(gated) and not all(gated):
+                raise ValueError(
+                    f"a {in_features} -> {features} conv split at {split} "
+                    f"quantizes one operand only, which is not supported")
+            if all(gated):
+                self.quant_sites = [name for name, _ in halves]
+        for name in self.quant_sites:
+            self.register_buffer(name, torch.zeros((), dtype=torch.float32))
+        self._qweights = None
+
+    def _quant_weights(self) -> list:
+        """(QWeight per operand), rebuilt when the weight changes."""
+        key = (self.weight._version, self.weight.data_ptr(), self.weight.device)
+        if self._qweights is None or self._qweights[0] != key:
+            with torch.no_grad():
+                w = self.weight.detach()
+                parts = ([w] if self.split is None else
+                         [w[:, :self.split], w[:, self.split:]])
+                self._qweights = (key, [prepare_weight(p) for p in parts])
+        return self._qweights[1]
+
+    def _forward_int8(self, x, skip):
+        dt = self.compute_dtype
+        ops = [x.to(dt)] + ([] if skip is None else [skip.to(dt)])
+        if self.quant_mode == "calibrate":
+            with torch.no_grad():
+                for name, v in zip(self.quant_sites, ops):
+                    getattr(self, name).copy_(observed_amax(v, getattr(self, name)))
+        amaxes = [getattr(self, name) for name in self.quant_sites]
+        qws = self._quant_weights()
+        bias = None if self.bias is None else self.bias.detach()
+        if skip is None:
+            return int8_conv_q(ops[0], qws[0], amaxes[0], bias=bias)
+        return int8_conv_q(ops[0], qws[0], amaxes[0], ops[1], qws[1],
+                           amaxes[1], bias=bias)
 
     def forward(self, x: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`skip` is concatenated onto x's channels without forming the
         concat: conv(cat(x, s), W) == conv(x, W[:, :Cx]) + conv(s, W[:, Cx:])."""
+        if self.quant_sites and self.quant_mode != "off":
+            if (skip is None) != (self.split is None):
+                raise ValueError("a quantized conv takes a skip operand "
+                                 "exactly when it was built with split")
+            return self._forward_int8(x, skip)
         dt = self.compute_dtype
         x = x.to(dt)
         w = self.weight.to(dt)
@@ -53,6 +122,29 @@ class Conv2d(nn.Conv2d):
         if self.bias is not None:
             y = y + self.bias.to(dt)[None, :, None, None]
         return y
+
+
+@contextlib.contextmanager
+def quant_mode(net: nn.Module, mode: str) -> Iterator[None]:
+    """Sets every quantized conv of `net` to `mode` ('serve', 'calibrate'
+    or 'off') inside the block and back after it."""
+    if mode not in ("serve", "calibrate", "off"):
+        raise ValueError(f"unknown quant mode {mode!r}")
+    convs = [m for m in net.modules() if isinstance(m, Conv2d) and m.quant_sites]
+    saved = [m.quant_mode for m in convs]
+    for m in convs:
+        m.quant_mode = mode
+    try:
+        yield
+    finally:
+        for m, old in zip(convs, saved):
+            m.quant_mode = old
+
+
+def quant_buffers(net: nn.Module) -> dict:
+    """{state_dict key: amax buffer} of every quantized conv operand."""
+    return {name: buf for name, buf in net.named_buffers()
+            if name.rsplit(".", 1)[-1] in ("amax_x", "amax_skip")}
 
 
 class ConvTranspose4x4(nn.ConvTranspose2d):
@@ -122,10 +214,12 @@ class Block(nn.Module):
     """Conv3x3 -> GroupNorm(groups) with float32 statistics -> Mish."""
 
     def __init__(self, dim: int, dim_out: int, groups: int = 8,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, quant: Optional[str] = None,
+                 split: Optional[int] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.conv = Conv2d(dim, dim_out, 3, compute_dtype=compute_dtype)
+        self.conv = Conv2d(dim, dim_out, 3, compute_dtype=compute_dtype,
+                           quant=quant, split=split)
         self.norm = nn.GroupNorm(groups, dim_out, eps=1e-5)
 
     def forward(self, x, skip=None):
@@ -136,17 +230,22 @@ class Block(nn.Module):
 class ResnetBlock(nn.Module):
     """Two Blocks with a time-embedding channel bias between them and a
     residual (a 1x1 conv where the width changes).  `skip` is the
-    expansive path's skip connection, logically concatenated onto x."""
+    expansive path's skip connection, logically concatenated onto x;
+    `skip_dim` is its width where the block takes one (the x half of the
+    input is then dim - skip_dim channels).  `quant` goes to the two
+    Blocks' 3x3 convs; the residual 1x1 stays in compute_dtype."""
 
     def __init__(self, dim: int, dim_out: int, time_dim: int,
                  groups: int = 8, dropout: float = 0.0,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, quant: Optional[str] = None,
+                 skip_dim: int = 0):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.block0 = Block(dim, dim_out, groups, compute_dtype)
+        self.block0 = Block(dim, dim_out, groups, compute_dtype, quant,
+                            split=dim - skip_dim if skip_dim else None)
         self.time_proj = nn.Linear(time_dim, dim_out)
         self.drop = nn.Dropout(dropout)
-        self.block1 = Block(dim_out, dim_out, groups, compute_dtype)
+        self.block1 = Block(dim_out, dim_out, groups, compute_dtype, quant)
         self.res_conv = (Conv2d(dim, dim_out, 1, compute_dtype=compute_dtype)
                          if dim != dim_out else None)
 

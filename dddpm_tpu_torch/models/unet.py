@@ -14,7 +14,7 @@ attns[i], ...), which is what convert.py relies on.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -52,14 +52,16 @@ class Unet(nn.Module):
     def __init__(self, dim: int = 128, in_channels: int = 3,
                  dim_mults: Sequence[int] = (1, 2, 2, 2),
                  dropout: float = 0.0, compute_dtype=torch.float32,
-                 use_pallas: bool = True):
+                 use_pallas: bool = True, quant_conv: Optional[str] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
         dims = [in_channels] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         self.levels = len(in_out)
-        dt = dict(compute_dtype=compute_dtype)
-        at = dict(dt, use_pallas=use_pallas)
+        at = dict(compute_dtype=compute_dtype, use_pallas=use_pallas)
+        # the 3x3 convs of the ResnetBlocks and the final Block take the
+        # opt-in int8 serving mode (ops/quant.py); the rest stays float
+        dt = dict(compute_dtype=compute_dtype, quant=quant_conv)
 
         self.time_mlp = TimeMLP(dim)
         resnets, attns, downs, ups = [], [], [], []
@@ -68,36 +70,42 @@ class Unet(nn.Module):
                         ResnetBlock(dim_out, dim_out, dim, dropout=dropout, **dt)]
             attns.append(PreNormLinearAttention(dim_out, **at))
             if ind < self.levels - 1:
-                downs.append(Downsample(dim_out, **dt))
+                downs.append(Downsample(dim_out, compute_dtype=compute_dtype))
         mid = dims[-1]
         resnets.append(ResnetBlock(mid, mid, dim, **dt))
         attns.append(PreNormLinearAttention(mid, **at))
         resnets.append(ResnetBlock(mid, mid, dim, **dt))
         for dim_in, dim_out in reversed(in_out[1:]):
-            resnets += [ResnetBlock(dim_out * 2, dim_in, dim, **dt),
+            resnets += [ResnetBlock(dim_out * 2, dim_in, dim, skip_dim=dim_out,
+                                    **dt),
                         ResnetBlock(dim_in, dim_in, dim, **dt)]
             attns.append(PreNormLinearAttention(dim_in, **at))
-            ups.append(Upsample(dim_in, **dt))
+            ups.append(Upsample(dim_in, compute_dtype=compute_dtype))
         self.resnets = nn.ModuleList(resnets)
         self.attns = nn.ModuleList(attns)
         self.downsamples = nn.ModuleList(downs)
         self.upsamples = nn.ModuleList(ups)
         self.final_block = Block(dim, dim, **dt)
-        self.final_conv = Conv2d(dim, in_channels, 1, **dt)
+        self.final_conv = Conv2d(dim, in_channels, 1,
+                                 compute_dtype=compute_dtype)
 
     @classmethod
     def from_config(cls, config: dict) -> "Unet":
         """The config's UNet; use_pallas_attention must be resolved
-        already (build_model pins it)."""
+        already (build_model pins it).  conv_quant (None or 'int8')
+        selects the int8 serving mode, as the JAX module's from_config."""
         use_pallas = config.get("use_pallas_attention", "auto")
         if use_pallas == "auto":
             raise ValueError("use_pallas_attention='auto' is resolved by "
                              "build_model (resolve_use_pallas)")
+        quant = config.get("conv_quant") or None
+        if quant not in (None, "int8"):
+            raise ValueError(f"conv_quant must be 'int8' or unset, got {quant!r}")
         return cls(dim=config["unet_chan"], in_channels=config["unet_in"],
                    dim_mults=tuple(config["unet_dims"]),
                    dropout=config["unet_dropout"],
                    compute_dtype=compute_dtype_of(config),
-                   use_pallas=bool(use_pallas))
+                   use_pallas=bool(use_pallas), quant_conv=quant)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W) in [-1, 1]; t: (B,) integer timesteps."""

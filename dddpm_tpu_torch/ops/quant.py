@@ -1,0 +1,244 @@
+"""Int8 (W8A8) quantized 3x3 convolution for the serving path (port of
+dddpm_tpu/ops/quant.py).
+
+An opt-in mode for sampling only (config["conv_quant"] = "int8",
+generate_main --quant-conv int8), with no gradient:
+
+- weights: symmetric per-output-channel s8, quantized from the float32
+  parameters (`quantize_weight`; the module caches the result, so a
+  sampling chain quantizes each weight once);
+- activations: symmetric per-tensor s8 with a static scale from a
+  calibrated absmax (`act_scale_from_amax`, `quantize_act`), which the
+  module holds as a buffer and calibration raises with `observed_amax`;
+- the product: s8 x s8 with exact integer sums, dequantized as
+  float(acc) * (xs * ws[c]) in f32.  A skip operand (the UNet's
+  concat-free skip connection) is quantized with its own scales and its
+  dequantized result added in f32; the sum is rounded to x's dtype once.
+
+`quant_conv_wins` is the JAX package's shape gate, kept as it is: it
+decides which convs are quantized, and so what the model computes.
+
+On a CUDA tensor `int8_conv` launches the hand-written kernel
+(csrc/int8_conv.cu, Q1) or raises; on a CPU tensor `plain` runs.  Both
+compute the same integers and round the same way (IEEE division,
+round-half-to-even, one f32 multiply by the scale product formed first,
+one f32 add, one rounding to x's dtype), so they agree bit for bit.
+NCHW tensors (channels_last on the model's path), OIHW weights.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from dddpm_tpu_torch.ops import _build
+
+CIN_STEP = 32     # csrc/int8_conv.cu: one m16n8k32 k step of input channels
+COUT_STEP = 64    # one warp's output channels
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches of the C entry; chip_smoke.py reads it
+LAUNCHES = {"int8_conv": 0}
+
+
+def quant_conv_wins(kk: int, spatial: int, cin: int, cout: int,
+                    stride: int = 1) -> bool:
+    """The JAX package's gate (dddpm_tpu/ops/quant.py:quant_conv_wins):
+    a conv is quantized when it is stride 1, keeps its width
+    (cin == cout), has at least 128 channels and a 2x2 or 3x3 kernel.
+    `spatial` is not read."""
+    del spatial
+    return (stride == 1 and cin == cout and cin >= 128
+            and kk in (2, 3))
+
+
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax, 1e-12) / 127 in f32 by IEEE division on every device: a
+    Python-number divisor would make a CUDA tensor multiply by the
+    rounded reciprocal, which is 1 ulp off for ~5% of amax values."""
+    a = torch.clamp_min(amax.float(), 1e-12)
+    return a / torch.full_like(a, 127.0)
+
+
+def quantize_weight(w: torch.Tensor):
+    """(wq int8 OIHW, scale f32 (Cout,)): symmetric per-output-channel s8
+    of an OIHW kernel, its scale amax / 127 with amax floored at 1e-12."""
+    wf = w.float()
+    scale = _scale(wf.abs().amax(dim=(1, 2, 3)))
+    wq = torch.clamp(torch.round(wf / scale[:, None, None, None]), -127, 127)
+    return wq.to(torch.int8), scale
+
+
+def act_scale_from_amax(amax: torch.Tensor) -> torch.Tensor:
+    return _scale(amax)
+
+
+def quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Symmetric per-tensor s8 with a given scale: round half to even."""
+    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
+
+
+def observed_amax(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """The running absmax calibration keeps (on x's device, no sync)."""
+    return torch.maximum(prev.float(), x.float().abs().amax())
+
+
+class QWeight(NamedTuple):
+    """A quantized 3x3 kernel: `wq` (Cout, Cin, 3, 3) int8, `ws` (Cout,)
+    f32, and `taps` (9, Cout, Cin) int8, the kernel's layout (tap-major,
+    input channels contiguous)."""
+    wq: torch.Tensor
+    ws: torch.Tensor
+    taps: torch.Tensor
+
+
+def prepare_weight(w: torch.Tensor) -> QWeight:
+    wq, ws = quantize_weight(w)
+    cout, cin = wq.shape[:2]
+    taps = wq.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
+    return QWeight(wq, ws, taps)
+
+
+def _dequant_plain(x, qw: QWeight, amax) -> torch.Tensor:
+    """float(conv(s8 x, s8 w)) * (xs * ws), f32 NCHW.  The integer sums
+    run in float64, exact while |acc| < 2^53 (here < 2^31), with oneDNN
+    and cuDNN off so that no transform-based algorithm is picked."""
+    xs = act_scale_from_amax(amax)
+    xq = quantize_act(x, xs)
+    with torch.backends.mkldnn.flags(enabled=False, allow_tf32=None), \
+            torch.backends.cudnn.flags(enabled=False):
+        acc = F.conv2d(xq.double(), qw.wq.double(), padding=1)
+    return acc.float() * (xs * qw.ws)[None, :, None, None]
+
+
+def plain(x, qw: QWeight, amax, skip=None, qw_skip: Optional[QWeight] = None,
+          amax_skip=None, bias=None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, in the JAX package's order:
+    each operand's dequantized f32 product, their f32 sum, rounded to
+    x's dtype, then + bias rounded to x's dtype."""
+    y = _dequant_plain(x, qw, amax)
+    if skip is not None:
+        y = y + _dequant_plain(skip, qw_skip, amax_skip)
+    y = y.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype)[None, :, None, None]
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+def _lib():
+    lib = _build.load("int8_conv")
+    if lib.int8_conv.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.int8_conv.argtypes = [vp] * 10 + [i] * 6 + [vp]
+        lib.int8_conv.restype = i
+    return lib
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    """t (B, C, H, W) as a contiguous NHWC view (no copy when t is
+    channels_last), 16-byte aligned."""
+    v = t.permute(0, 2, 3, 1)
+    if not v.is_contiguous():
+        return v.contiguous()
+    return v.clone() if v.data_ptr() % 16 else v
+
+
+def _kernel(x, qw, amax, skip, qw_skip, amax_skip, bias):
+    """Q1 on CUDA tensors; raises on what it does not take."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 4:
+        raise ValueError("x must be (B, C, H, W)")
+    bsz, cin, h, w = x.shape
+    cout = qw.ws.numel()
+    if cin % CIN_STEP or cout % COUT_STEP:
+        raise ValueError(f"kernel takes Cin % {CIN_STEP} == 0 and Cout % "
+                         f"{COUT_STEP} == 0, got {cin} -> {cout}")
+    operands = [(x, qw, amax)]
+    if skip is not None:
+        if skip.shape != x.shape or skip.dtype != x.dtype:
+            raise ValueError(f"skip must match x: {tuple(skip.shape)} "
+                             f"{skip.dtype} vs {tuple(x.shape)} {x.dtype}")
+        operands.append((skip, qw_skip, amax_skip))
+    for v, q, a in operands:
+        if v.device != x.device:
+            raise ValueError(f"operands on {v.device} and {x.device}")
+        if tuple(q.taps.shape) != (9, cout, cin) or q.taps.dtype != torch.int8:
+            raise ValueError(f"weights must be (9, {cout}, {cin}) int8, got "
+                             f"{tuple(q.taps.shape)} {q.taps.dtype}")
+        for t in (q.taps, q.ws, a):
+            if t.device != x.device:
+                raise ValueError(f"weights and amax must be on {x.device}")
+        if a.numel() != 1 or a.dtype != torch.float32:
+            raise ValueError("amax must be one float32 value")
+    if bias is not None and (bias.numel() != cout or bias.device != x.device):
+        raise ValueError(f"bias must hold {cout} values on {x.device}")
+    xs = [_nhwc(v) for v, _, _ in operands]
+    taps = [q.taps.contiguous() for _, q, _ in operands]
+    ws = [q.ws.float().contiguous() for _, q, _ in operands]
+    amaxes = [a.reshape(1).contiguous() for _, _, a in operands]
+    y = torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device)
+    bias_f = None if bias is None else bias.float().contiguous()
+    p = lambda t: ctypes.c_void_p(None) if t is None else _build.ptr(t)
+    sk = (lambda lst: p(lst[1]) if len(lst) > 1 else ctypes.c_void_p(None))
+    lib = _lib()
+    LAUNCHES["int8_conv"] += 1
+    _build.check(lib.int8_conv(
+        p(xs[0]), p(taps[0]), p(ws[0]), p(amaxes[0]),
+        sk(xs), sk(taps), sk(ws), sk(amaxes), p(bias_f), p(y),
+        bsz, h, w, cin, cout, _DTYPES[x.dtype], _build.stream(x)),
+        "int8_conv")
+    return y.permute(0, 3, 1, 2)
+
+
+class _Int8Conv(torch.autograd.Function):
+    """Forward only: the JAX path has no VJP (round's derivative is 0
+    almost everywhere), so the backward raises."""
+
+    @staticmethod
+    def forward(ctx, x, qw, amax, skip, qw_skip, amax_skip, bias):
+        if x.device.type == "cpu":
+            return plain(x, qw, amax, skip, qw_skip, amax_skip, bias)
+        return _kernel(x, qw, amax, skip, qw_skip, amax_skip, bias)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the int8 conv has no gradient: it is a "
+                           "sampling / serving mode")
+
+
+def int8_conv_q(x, qw: QWeight, amax, skip=None,
+                qw_skip: Optional[QWeight] = None, amax_skip=None,
+                bias=None) -> torch.Tensor:
+    """The W8A8 3x3 SAME stride-1 conv on prepared weights: NCHW x (B,
+    Cin, H, W) in f32 or bf16, `amax` a one-value f32 tensor on x's
+    device; optional skip operand (x's shape) with its own weights and
+    amax, and a (Cout,) bias added after the rounding to x's dtype.  A
+    CPU tensor takes `plain`; a CUDA tensor launches Q1 or raises."""
+    if (skip is None) != (qw_skip is None) or (skip is None) != (amax_skip is None):
+        raise ValueError("skip, qw_skip and amax_skip come together")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return _Int8Conv.apply(x, qw, amax, skip, qw_skip, amax_skip, bias)
+
+
+def int8_conv(x, w, act_amax, skip=None, w_skip=None, amax_skip=None,
+              bias=None) -> torch.Tensor:
+    """`int8_conv_q` on float OIHW kernels, quantized here (the module
+    caches them instead)."""
+    return int8_conv_q(x, prepare_weight(w), act_amax, skip,
+                       None if w_skip is None else prepare_weight(w_skip),
+                       amax_skip, bias)
+
+
+def cost(bsz: int, h: int, w: int, cin: int, cout: int, itemsize: int,
+         operands: int = 1) -> dict:
+    """Bytes Q1 must move (each operand's x once in its dtype, its s8
+    weights and f32 scales, y once) and the s8 operations it must do
+    (2 x 9 x Cin x Cout a pixel, per operand)."""
+    pix = bsz * h * w
+    return {"bytes": operands * (pix * cin * itemsize + 9 * cin * cout
+                                 + cout * 4 + 4) + pix * cout * itemsize,
+            "flops": operands * pix * 2 * 9 * cin * cout}

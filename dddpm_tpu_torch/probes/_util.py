@@ -16,8 +16,9 @@ import subprocess
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
-# the dense bf16 tensor-core peak; f32 with TF32 off: the FP32 core peak
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the dense bf16 tensor-core peak; f32 with TF32 off: the FP32 core peak;
+# int8: the dense s8 tensor-core peak (operations a second)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 
 def require_card() -> None:

@@ -58,6 +58,12 @@ class Trainer:
         if n_samples > config["batch_size"]:
             raise ValueError(f"n_samples ({n_samples}) must be <= batch size "
                              f"({config['batch_size']})")
+        if config.get("conv_quant"):
+            raise ValueError(
+                "conv_quant is a sampling/serving-only mode (the "
+                "quantized conv path has no VJP — jnp.round's gradient "
+                "is zero a.e.); train without it and pass "
+                "--quant-conv at generation time")
 
         # data
         self.train_loader, self.val_loader = get_dataloader(

@@ -77,15 +77,33 @@ def test_a_header_edit_names_another_library(build_dir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["conv3x3", "winograd", "probe_cmajor_conv",
-                                  "convres_fwd", "convres_bwd", "attention_block"])
+                                  "convres_fwd", "convres_bwd", "attention_block",
+                                  "int8_conv"])
 def test_tensor_core_kernels_share_one_copy_of_the_fragment_helpers(name):
-    """K5, K6, P4, K2, K3 and K1a/K1b include csrc/mma_sm90.cuh and define
-    none of its helpers themselves, so they cannot drift apart."""
+    """K5, K6, P4, K2, K3, K1a/K1b and Q1 include csrc/mma_sm90.cuh and
+    define none of its helpers themselves, so they cannot drift apart."""
     source = (_build.CSRC / f"{name}.cu").read_text()
     assert '#include "mma_sm90.cuh"' in source
     for helper in ("cp_async16(", "ldmatrix_x4(", "ldmatrix_x4_trans(",
                    "stmatrix_x4_trans(", "mma_bf16("):
         assert f"void {helper}" not in source, helper
+
+
+def test_int8_kernel_rounds_as_its_plain_version():
+    """Q1 takes its s8 helpers from csrc/mma_s8_sm90.cuh, and every float
+    step that decides its bits is a correctly rounded intrinsic (never
+    contracted into an FMA): the division of the quantize, the scale
+    product, the dequantize multiply and the skip operand's add."""
+    source = (_build.CSRC / "int8_conv.cu").read_text()
+    header = (_build.CSRC / "mma_s8_sm90.cuh").read_text()
+    assert '#include "mma_s8_sm90.cuh"' in source
+    for helper in ("void mma_s8(", "int quantize_s8(", "unsigned pack_s8x4("):
+        assert helper in header and helper not in source, helper
+    assert "__fdiv_rn(v, xs)" in header and "__float2int_rn" in header
+    for op in ("__fdiv_rn(fmaxf(", "__fmul_rn(xs, ", "__fmul_rn(__int2float_rn(",
+               "__fadd_rn(y[mi][nt][i], v)"):
+        assert op in source, op
+    assert "use_fast_math" not in " ".join(_build.NVCC_FLAGS)
 
 
 @pytest.mark.parametrize("name", ["conv3x3", "convres_fwd"])

@@ -163,3 +163,53 @@ def test_generate_takes_ema_weights_only_with_an_ema(ws, tmp_path, ema_decay):
     want = blob["ema"] if ema_decay > 0 else blob["params"]
     for k, p in net.named_parameters():
         assert torch.equal(p.detach(), want[k]), k
+
+
+# unet_chan 128 at an 8^2 latent: 14 convs pass the int8 gate
+QUANT_CFG = {
+    "model": "dddpm", "dataset": "synthetic", "image_size": 16,
+    "batch_size": 2, "T": 20, "lr": 1e-3, "loss_type": "simple",
+    "beta_schedule": "cosine", "loss_flat": "sum", "unet_chan": 128,
+    "unet_dims": (1, 2), "unet_dropout": 0.0, "unet_in": 8,
+    "n_downsamples": 1, "d_mode": "convolutional_res",
+    "u_mode": "convolutional_res", "d_dropout": 0, "d_chans": 16,
+    "d_n_blocks": 1, "u_n_blocks": 1, "ae_loss": True, "t_rec_max": 5,
+    "force_latent": True, "compute_dtype": "float32", "ema_decay": 0.0,
+}
+
+
+def test_generate_int8_writes_samples(tmp_path, monkeypatch):
+    """generate_main --quant-conv int8 --quant-calib noise on the CPU:
+    every amax is calibrated, the samples are finite and differ from the
+    float model's from the same seed."""
+    from dddpm_tpu_torch.models.blocks import quant_buffers
+    from dddpm_tpu_torch.models.factory import build_model
+    from dddpm_tpu_torch.train.state import create_optimizer, create_train_state
+
+    net, _, init_fn, config = build_model(QUANT_CFG, device="cpu")
+    init_fn(0)
+    src = ckpt.save_checkpoint(
+        str(tmp_path / "q"),
+        create_train_state(net, create_optimizer(net, config["lr"]), seed=0),
+        config)
+    calibrated = []
+    real = generate_main.maybe_calibrate
+
+    def spy(config, net, *args, **kwargs):
+        calibrated.append(net)
+        return real(config, net, *args, **kwargs)
+
+    monkeypatch.setattr(generate_main, "maybe_calibrate", spy)
+    monkeypatch.chdir(tmp_path)
+    common = ["--checkpoint", src, "--fid-samples", "2", "--batch-size", "2",
+              "--device", "cpu"]
+    quant, _, _ = generate_main.main(common + [
+        "--quant-conv", "int8", "--quant-calib", "noise",
+        "--quant-calib-batch", "2", "--out", "sq", "--latent-out", "slq"])
+    assert np.array_equal(np.load("sq/q.npy"), quant)
+    plain, _, _ = generate_main.main(common + ["--out", "s", "--latent-out", "sl"])
+    bufs = quant_buffers(calibrated[0])
+    assert len(calibrated) == 1 and len(bufs) == 14
+    assert all(float(b) > 0 for b in bufs.values())
+    assert quant.shape == plain.shape == (1, 2, 16, 16, 3)
+    assert np.isfinite(quant).all() and not np.array_equal(quant, plain)

@@ -19,6 +19,7 @@ from dddpm_tpu_torch.ops import attention_block as ab
 from dddpm_tpu_torch.ops import conv3x3 as c3
 from dddpm_tpu_torch.ops import convres as cr
 from dddpm_tpu_torch.ops import linear_attention as la
+from dddpm_tpu_torch.ops import quant as qt
 from dddpm_tpu_torch.ops import winograd as wg
 from dddpm_tpu_torch.probes import _util as pu
 from dddpm_tpu_torch.probes import attention_ceiling as p1
@@ -836,3 +837,136 @@ def test_inception_on_card_matches_cpu(card):
     exact = ((a[:, None] - b[None]) ** 2).sum(-1)
     assert float(np.abs(d - exact).max()) <= 1e-4 * float(exact.max())
     assert float(np.abs(d_tf32 - exact).max()) > 1e-4 * float(exact.max())
+
+
+# Q1, the int8 conv: the five shape classes of the x2 UNet's quantized
+# convs (B = 2) and a ragged shape with other widths
+INT8_SHAPES = [(2, 128, 128, 128, 128), (2, 64, 64, 256, 256),
+               (2, 64, 64, 128, 128), (2, 32, 32, 256, 256),
+               (2, 16, 16, 256, 256), (1, 13, 21, 96, 192)]
+
+
+def _int8_args(card, bsz, h, w, cin, cout, dtype, seed, skip):
+    r = _rand(card, seed)
+    x = (2.0 * r(bsz, cin, h, w)).to(dtype).contiguous(memory_format=torch.channels_last)
+    qw = qt.prepare_weight(0.05 * r(cout, cin, 3, 3))
+    # amax below the input's largest magnitude: some values saturate
+    amax = (x.float().abs().amax() * 0.8).reshape(())
+    extra = {"bias": 0.1 * r(cout)}
+    if skip:
+        s = (5.0 * r(bsz, cin, h, w)).to(dtype).contiguous(memory_format=torch.channels_last)
+        extra.update(skip=s, qw_skip=qt.prepare_weight(0.05 * r(cout, cin, 3, 3)),
+                     amax_skip=(s.float().abs().amax() * 0.9).reshape(()))
+    return (x, qw, amax), extra
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,h,w,cin,cout", INT8_SHAPES)
+def test_int8_conv_kernel_equals_plain(card, dtype, skip, bsz, h, w, cin, cout):
+    """Q1 against its plain version: equal, bit for bit."""
+    args, extra = _int8_args(card, bsz, h, w, cin, cout, dtype, h + cin, skip)
+    before = qt.LAUNCHES["int8_conv"]
+    got = qt.int8_conv_q(*args, **extra)
+    assert qt.LAUNCHES["int8_conv"] == before + 1
+    want = qt.plain(*args, **extra)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (bsz, cout, h, w)
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+def _reciprocal_flips(xs: float, n: int = 16) -> np.ndarray:
+    """Up to n values v in [-127 xs, 127 xs] where round(v / xs) and
+    round(v * (1 / xs)) differ (f32, half to even): within 16 ulps of the
+    .5 ties."""
+    xs32 = np.float32(xs)
+    inv = np.float32(1.0) / xs32
+    found = []
+    for k in range(-127, 127):
+        tie = np.float32((k + 0.5) * xs32)
+        for d in range(-16, 17):
+            v = np.float32(tie + np.float32(d) * np.spacing(tie))
+            if np.round(v / xs32) != np.round(v * inv):
+                found.append(v)
+                break
+        if len(found) == n:
+            break
+    return np.array(found, np.float32)
+
+
+@pytest.mark.parametrize("fault", ["transposed_taps", "reciprocal"])
+def test_int8_conv_check_fails_a_wrong_plain(card, fault, monkeypatch):
+    """The exact check sees a plain version with the 3x3 taps transposed,
+    or with x * (1 / xs) in place of x / xs (x holds values where the
+    two round to other integers)."""
+    args, extra = _int8_args(card, 2, 64, 64, 128, 128, torch.float32, 5, False)
+    x, qw, amax = args
+    if fault == "reciprocal":
+        # an amax whose scale has such values (for a few scales 1 / xs
+        # rounds so closely that none lies near a tie)
+        for frac in (0.8, 0.77, 0.73, 0.7, 0.66, 0.6, 0.55, 0.5):
+            amax = (x.float().abs().amax() * frac).reshape(())
+            flips = _reciprocal_flips(float(qt.act_scale_from_amax(amax)))
+            if len(flips) >= 8:
+                break
+        assert len(flips) >= 8
+        x[0, 0, 0, :len(flips)] = torch.from_numpy(flips).to(card)
+    got = qt.int8_conv_q(x, qw, amax, **extra)
+    assert torch.equal(got, qt.plain(x, qw, amax, **extra))
+    if fault == "transposed_taps":
+        qw = qt.QWeight(qw.wq.transpose(2, 3).contiguous(), qw.ws, qw.taps)
+    else:
+        monkeypatch.setattr(qt, "quantize_act", lambda v, s: torch.clamp(
+            torch.round(v.float() * (1.0 / s)), -127, 127).to(torch.int8))
+    assert not torch.equal(got, qt.plain(x, qw, amax, **extra))
+
+
+def test_int8_conv_refuses_what_it_cannot_take(card):
+    z = lambda *s, dt=torch.float32: torch.zeros(*s, device=card, dtype=dt)
+    qw = qt.prepare_weight(z(64, 48, 3, 3))
+    with pytest.raises(ValueError):          # Cin 48
+        qt.int8_conv_q(z(1, 48, 8, 8), qw, z(()))
+    with pytest.raises(ValueError):          # Cout 96
+        qt.int8_conv_q(z(1, 64, 8, 8), qt.prepare_weight(z(96, 64, 3, 3)), z(()))
+    qw = qt.prepare_weight(z(64, 64, 3, 3))
+    with pytest.raises(TypeError):
+        qt.int8_conv_q(z(1, 64, 8, 8, dt=torch.float16), qw, z(()))
+    with pytest.raises(ValueError):          # a skip of another shape
+        qt.int8_conv_q(z(1, 64, 8, 8), qw, z(()), z(1, 64, 8, 4), qw, z(()))
+    with pytest.raises(ValueError):          # amax of two values
+        qt.int8_conv_q(z(1, 64, 8, 8), qw, z(2))
+
+
+INT8_CFG = {
+    "model": "dddpm", "dataset": "synthetic", "image_size": 32,
+    "batch_size": 2, "T": 20, "loss_type": "simple",
+    "beta_schedule": "cosine", "loss_flat": "sum", "unet_chan": 128,
+    "unet_dims": (1, 2), "unet_dropout": 0.0, "unet_in": 8,
+    "n_downsamples": 1, "d_mode": "convolutional_res",
+    "u_mode": "convolutional_res", "d_dropout": 0, "d_chans": 64,
+    "d_n_blocks": 1, "u_n_blocks": 1, "ae_loss": True, "t_rec_max": 5,
+    "force_latent": True, "compute_dtype": "bfloat16", "conv_quant": "int8",
+}
+
+
+def test_int8_path_launches_q1_at_every_quantized_conv(card):
+    """Calibration (noise, 2 points) and a 3-step chain on the card: Q1
+    launches once per quantized operand per UNet eval (14 at a 16^2
+    latent, dims (1, 2)), and the chain's states stay finite."""
+    from dddpm_tpu_torch.models.blocks import quant_buffers
+    from dddpm_tpu_torch.quantize import calibrate_conv_quant
+
+    net, process, init_fn, config = build_model(INT8_CFG)
+    init_fn(0)
+    bufs = quant_buffers(net)
+    assert len(bufs) == 14
+    qt.LAUNCHES["int8_conv"] = 0
+    calibrate_conv_quant(config, net, process, batch_size=2, n_points=2,
+                         mode="noise")
+    assert qt.LAUNCHES["int8_conv"] == 14 * 3
+    assert all(float(b) > 0 for b in bufs.values())
+    qt.LAUNCHES["int8_conv"] = 0
+    z = process.p_sample_chain(process.init_latent(2, seed=1), [3, 2, 1], seed=1)
+    torch.cuda.synchronize()
+    assert qt.LAUNCHES["int8_conv"] == 14 * 3
+    assert torch.isfinite(z).all()

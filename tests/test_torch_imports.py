@@ -1,7 +1,10 @@
 """The port stands alone: no module of dddpm_tpu_torch, and not
 chip_smoke.py, imports JAX, its libraries or the JAX package.  Checked
 on the source's syntax tree (the interpreter may import jax at start-up,
-so sys.modules cannot tell)."""
+so sys.modules cannot tell).  convert_jax_checkpoint.py at the repo root
+is outside this check on purpose: it reads the JAX package's orbax
+checkpoints, so it must import the JAX package; it is the one file of
+the port that does, and the package never imports it."""
 import ast
 from pathlib import Path
 

@@ -1,0 +1,405 @@
+"""The port's int8 (W8A8) serving mode against the JAX package's
+(dddpm_tpu/ops/quant.py, quantize.py, models/blocks.py:Conv3x3Params) on
+the same numpy inputs, on the CPU, where ops/quant.py runs its plain
+version.
+
+The single conv and its quantizers must agree EXACTLY: both compute the
+same integers and round the same way; so must every quantized conv of a
+UNet given the input JAX's conv got.  The whole quantized UNet agrees
+only to 5e-2 in relative L2: a float op before a quantized conv
+rounds differently in the two frameworks, an activation that lands
+within that difference of a .5 boundary quantizes one step apart (a
+flip), and the flips cascade (test_quantized_unet_matches_jax)."""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from dddpm_tpu.models.blocks import Block as JaxBlock
+from dddpm_tpu.models.blocks import Conv3x3Params
+from dddpm_tpu.models.factory import build_model as jax_build_model
+from dddpm_tpu.models.unet import Unet as JaxUnet
+from dddpm_tpu.ops import quant as jq
+from dddpm_tpu.quantize import maybe_calibrate as jax_maybe_calibrate
+from dddpm_tpu_torch import quantize
+from dddpm_tpu_torch.convert import jax_to_state_dict
+from dddpm_tpu_torch.models.blocks import Block, Conv2d, quant_buffers, quant_mode
+from dddpm_tpu_torch.models.factory import build_model
+from dddpm_tpu_torch.models.unet import Unet
+from dddpm_tpu_torch.ops import quant as tq
+from dddpm_tpu_torch.train.trainer import setup_trainer
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _nchw(a, dtype=torch.float32) -> torch.Tensor:
+    """NHWC numpy (or jax) -> NCHW torch, channels_last, in `dtype`."""
+    t = torch.from_numpy(np.array(np.asarray(a, np.float32)))
+    return t.permute(0, 3, 1, 2).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.float().permute(0, 2, 3, 1).numpy()
+
+
+# ------------------------------------------------------------------ gate
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("kk", [1, 2, 3])
+def test_gate_is_jax_gate(kk, stride):
+    for spatial in (8, 16, 64, 128):
+        for cin in (8, 64, 128, 192, 256):
+            for cout in (8, 64, 128, 192, 256):
+                assert (tq.quant_conv_wins(kk, spatial, cin, cout, stride)
+                        == jq.quant_conv_wins(kk, spatial, cin, cout, stride))
+
+
+# ------------------------------------------------------------ quantizers
+
+def test_quantize_weight_equals_jax():
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(3, 3, 64, 48)).astype(np.float32) * 0.05
+    w[..., 3] = 0.0                      # an all-zero channel: the 1e-12 floor
+    wq, ws = jq.quantize_weight(jnp.asarray(w))
+    twq, tws = tq.quantize_weight(torch.from_numpy(w).permute(3, 2, 0, 1))
+    assert twq.dtype == torch.int8 and tws.dtype == torch.float32
+    np.testing.assert_array_equal(twq.numpy(), np.asarray(wq).transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(tws.numpy(), np.asarray(ws))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_quantize_act_and_observed_amax_equal_jax(dtype):
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(1)
+    x = jnp.asarray(rng.normal(size=(2, 6, 6, 32)) * 3.0, jnp.float32).astype(jdt)
+    # values on the .5 boundaries: round half to even in both
+    x = x.at[0, 0, 0, :8].set(jnp.asarray([0.5, 1.5, 2.5, -0.5, -1.5, -2.5,
+                                           126.5, -300.0], jdt))
+    xt = _nchw(x.astype(jnp.float32), tdt)
+    for amax in (0.0, 1.0, 127.0, 4.0):
+        xs = jq.act_scale_from_amax(jnp.float32(amax))
+        txs = tq.act_scale_from_amax(torch.tensor(amax))
+        assert float(txs) == float(xs)
+        np.testing.assert_array_equal(
+            tq.quantize_act(xt, txs).permute(0, 2, 3, 1).numpy(),
+            np.asarray(jq.quantize_act(x, xs)))
+    prev = jnp.float32(2.0)
+    np.testing.assert_array_equal(
+        float(tq.observed_amax(xt, torch.tensor(2.0))),
+        float(jq.observed_amax(x, prev)))
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_int8_conv_plain_equals_jax_exactly(dtype, skip):
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(2)
+    x = jnp.asarray(rng.normal(size=(2, 8, 8, 128)) * 2.0, jnp.float32).astype(jdt)
+    s = jnp.asarray(rng.normal(size=(2, 8, 8, 128)) * 5.0, jnp.float32).astype(jdt)
+    w = rng.normal(size=(3, 3, 256, 128)).astype(np.float32) * 0.05
+    # amax below the inputs' largest magnitude: some values saturate
+    ax = jnp.max(jnp.abs(x.astype(jnp.float32))) * 0.7
+    a_s = jnp.max(jnp.abs(s.astype(jnp.float32))) * 0.9
+    wt = torch.from_numpy(w).permute(3, 2, 0, 1)
+    if skip:
+        want = (jq.int8_conv(x, w[:, :, :128], ax)
+                + jq.int8_conv(s, w[:, :, 128:], a_s)).astype(jdt)
+        got = tq.int8_conv(_nchw(x, tdt), wt[:, :128], torch.tensor(float(ax)),
+                           _nchw(s, tdt), wt[:, 128:], torch.tensor(float(a_s)))
+    else:
+        want = jq.int8_conv(x, w[:, :, :128], ax).astype(jdt)
+        got = tq.int8_conv(_nchw(x, tdt), wt[:, :128], torch.tensor(float(ax)))
+    assert got.dtype == tdt and got.shape == (2, 128, 8, 8)
+    np.testing.assert_array_equal(_nhwc(got), np.asarray(want.astype(jnp.float32)))
+
+
+def test_int8_conv_has_no_gradient():
+    x = torch.randn(1, 128, 4, 4, requires_grad=True)
+    y = tq.int8_conv(x, torch.randn(128, 128, 3, 3), torch.tensor(3.0))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        y.sum().backward()
+
+
+# --------------------------------------------------------------- modules
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_quantized_conv_module_equals_jax(dtype, skip):
+    """Conv3x3Params(quant='int8') calibrated on one input and served on
+    another, against Conv2d(quant='int8') on its weights and amax: equal."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(3)
+    mk = lambda scale: jnp.asarray(rng.normal(size=(2, 8, 8, 128)) * scale,
+                                   jnp.float32)
+    x_cal, x = mk(1.0), mk(1.5)
+    s_cal, s = (mk(4.0), mk(5.0)) if skip else (None, None)
+    cin = 256 if skip else 128
+    mod = Conv3x3Params(features=128, in_features=cin, dtype=jdt, quant="int8")
+    vs = mod.init(jax.random.PRNGKey(0), x_cal, s_cal)
+    _, upd = mod.apply(vs, x_cal.astype(jdt),
+                       None if s_cal is None else s_cal.astype(jdt),
+                       mutable=["quant"])
+    vs = {"params": vs["params"], "quant": upd["quant"]}
+    want = mod.apply(vs, x.astype(jdt), None if s is None else s.astype(jdt))
+
+    conv = Conv2d(cin, 128, 3, compute_dtype=tdt, quant="int8",
+                  split=128 if skip else None)
+    conv.weight.data.copy_(torch.from_numpy(
+        np.asarray(vs["params"]["kernel"]).transpose(3, 2, 0, 1)))
+    conv.bias.data.copy_(torch.from_numpy(np.asarray(vs["params"]["bias"])))
+    assert conv.quant_sites == (["amax_x", "amax_skip"] if skip else ["amax_x"])
+    for name in conv.quant_sites:
+        getattr(conv, name).fill_(float(upd["quant"][name]))
+    with torch.no_grad():
+        got = conv(_nchw(x.astype(jdt), tdt),
+                   None if s is None else _nchw(s.astype(jdt), tdt))
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(_nhwc(got), np.asarray(want.astype(jnp.float32)))
+
+
+def test_quantized_block_matches_jax():
+    """Block(quant='int8') (conv, GroupNorm, mish) in f32 on converted
+    weights and amax: the conv is exact, GroupNorm's f32 sums differ."""
+    rng = np.random.default_rng(4)
+    x = jnp.asarray(rng.normal(size=(2, 8, 8, 128)), jnp.float32)
+    jblock = JaxBlock(128, 128, quant="int8")
+    vs = jblock.init(jax.random.PRNGKey(1), x)
+    _, upd = jblock.apply(vs, x, mutable=["quant"])
+    vs = {"params": vs["params"], "quant": upd["quant"]}
+    want = np.asarray(jblock.apply(vs, x * 1.2))
+    block = Block(128, 128, quant="int8")
+    block.load_state_dict(jax_to_state_dict(_np_tree(vs), block))
+    assert float(block.conv.amax_x) > 0
+    with torch.no_grad():
+        got = _nhwc(block(_nchw(x * 1.2)))
+    tol = 1e-5 * max(1.0, float(np.abs(want).max()))
+    assert np.abs(got - want).max() <= tol
+
+
+def _port_name(path) -> str:
+    """The port's module name of a JAX Conv3x3Params scope path."""
+    *blocks, conv = path
+    assert conv == "Conv_0", path
+    if len(blocks) == 1:                          # the final Block
+        return "final_block.conv"
+    rb, blk = blocks
+    return f"resnets.{rb.split('_')[1]}.block{blk.split('_')[1]}.conv"
+
+
+def test_quantized_unet_matches_jax():
+    """A unet_chan 128 UNet, dims (1, 2, 2) at 16^2 in f32, calibrated in
+    JAX on two inputs and served on a third, against the port on JAX's
+    weights and "quant" collection.  23 operands are quantized: the 16^2,
+    8^2 and 4^2 stride-1 convs that keep 128 or 256 channels, both halves
+    of the 4^2 skip seam among them.
+
+    Each quantized conv, given the input JAX's conv got, gives JAX's
+    output exactly.  The whole UNet agrees to 5e-2 in relative L2 and to
+    1e-1 of the largest output at any element (measured 2.9e-2 and
+    4.0e-2): the first flip (a float input ~1e-7 apart that quantizes one
+    step apart) moves nine pixels by ~1e-3; GroupNorm spreads that to
+    every pixel, where it flips more values at the next quantized conv,
+    and so on, until the two quantized nets differ by about the
+    quantization noise itself (~3-4% of the largest output).  The test
+    prints the share of flipped values at each quantized conv."""
+    from flax import linen as fnn
+
+    rng = np.random.default_rng(5)
+    xs = [rng.standard_normal((2, 16, 16, 8)).astype(np.float32) for _ in range(3)]
+    ts = [np.array([3, 17], np.int32), np.array([9, 0], np.int32),
+          np.array([12, 5], np.int32)]
+    jnet = JaxUnet(dim=128, in_channels=8, dim_mults=(1, 2, 2), quant_conv="int8")
+    vs = jnet.init(jax.random.PRNGKey(0), jnp.asarray(xs[0]), jnp.asarray(ts[0]))
+    quant = vs["quant"]
+    for x, t in zip(xs[:2], ts[:2]):
+        _, upd = jnet.apply({"params": vs["params"], "quant": quant},
+                            jnp.asarray(x), jnp.asarray(t), mutable=["quant"])
+        quant = upd["quant"]
+    vs = {"params": vs["params"], "quant": quant}
+    calls = []
+
+    def record(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if (isinstance(context.module, Conv3x3Params)
+                and context.method_name == "__call__"):
+            calls.append((context.module.scope.path, args, out))
+        return out
+
+    with fnn.intercept_methods(record):
+        want = np.asarray(jnet.apply(vs, jnp.asarray(xs[2]), jnp.asarray(ts[2])))
+
+    net = Unet(128, 8, (1, 2, 2), use_pallas=False, quant_conv="int8").eval()
+    net.load_state_dict(jax_to_state_dict(_np_tree(vs), net))
+    bufs = quant_buffers(net)
+    assert len(bufs) == len(jax.tree.leaves(quant)) == 23
+    assert all(float(b) > 0 for b in bufs.values())
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda m, a, o, name=name: seen.__setitem__(name, a))
+        for name, m in net.named_modules() if isinstance(m, Conv2d) and m.quant_sites]
+    with torch.no_grad():
+        got = _nhwc(net(_nchw(xs[2]), torch.from_numpy(ts[2]).long()))
+    for h in hooks:
+        h.remove()
+
+    exact, flips = 0, []
+    for path, args, out in calls:
+        name = _port_name(path)
+        conv = net.get_submodule(name)
+        if not conv.quant_sites:
+            continue
+        ops = [a for a in args if a is not None]
+        with torch.no_grad():
+            y = conv(*(_nchw(a) for a in ops))
+        np.testing.assert_array_equal(_nhwc(y), np.asarray(out), err_msg=name)
+        exact += len(ops)
+        for a, mine, site in zip(ops, seen[name], conv.quant_sites):
+            xs_ = tq.act_scale_from_amax(getattr(conv, site))
+            flips.append(float((tq.quantize_act(mine, xs_)
+                                != tq.quantize_act(_nchw(a), xs_)).float().mean()))
+    assert exact == 23
+    scale = max(1.0, float(np.abs(want).max()))
+    err = np.abs(got - want)
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    print(f"quantized UNet: max_abs_err {err.max():.3e} (tol {1e-1 * scale:.3e}), "
+          f"relative L2 {rel:.3e} (tol 5e-2); "
+          f"share of flipped s8 values at the 23 quantized operands, in order: "
+          + " ".join(f"{f:.1e}" for f in flips))
+    assert flips[0] < 1e-3
+    assert rel <= 5e-2 and err.max() <= 1e-1 * scale
+    # the same weights with the int8 mode off are the float UNet
+    ref = Unet(128, 8, (1, 2, 2), use_pallas=False).eval()
+    ref.load_state_dict({k: v for k, v in net.state_dict().items()
+                         if k not in bufs})
+    with torch.no_grad(), quant_mode(net, "off"):
+        x2, t2 = _nchw(xs[2]), torch.from_numpy(ts[2]).long()
+        assert torch.equal(net(x2, t2), ref(x2, t2))
+
+
+# ------------------------------------------------------------ calibration
+
+CFG = {
+    "model": "dddpm", "dataset": "celeba_hq", "image_size": 16,
+    "batch_size": 4, "T": 20, "loss_type": "simple",
+    "beta_schedule": "cosine", "loss_flat": "sum",
+    "unet_chan": 128, "unet_dims": (1, 2), "unet_dropout": 0.0,
+    "unet_in": 8, "n_downsamples": 1,
+    "d_mode": "convolutional_res", "u_mode": "convolutional_res",
+    "d_dropout": 0, "d_chans": 16, "d_n_blocks": 1,
+    "u_n_blocks": 1, "ae_loss": True, "t_rec_max": 5,
+    "force_latent": True, "compute_dtype": "float32",
+    "conv_quant": "int8", "use_pallas_attention": False,
+}
+
+
+@pytest.fixture(scope="module")
+def models():
+    jnet, _, init_fn, _ = jax_build_model(dict(CFG))
+    variables = init_fn(jax.random.PRNGKey(0))
+    net, process, _, _ = build_model(dict(CFG), device="cpu")
+    net.load_state_dict(jax_to_state_dict(_np_tree(variables), net))
+    return jnet, variables, net, process
+
+
+def test_calibration_observes_jax_amax(models):
+    """The same (x_t, t) snapshots through JAX's mutable=["quant"] apply
+    and the port's calibration mode.  The first level's three quantized
+    convs, whose inputs no quantized conv has touched, observe JAX's amax
+    to rtol 1e-5; every later one sees activations after the flips of
+    the quantized convs before it (test_quantized_unet_matches_jax) and
+    observes it to rtol 3e-2 (measured up to 1.6e-2)."""
+    jnet, variables, net, process = models
+    rng = np.random.default_rng(6)
+    snaps = [(rng.standard_normal((2, 8, 8, 8)).astype(np.float32) * s, t)
+             for s, t in ((1.0, 19), (0.7, 10), (1.3, 0))]
+    quant = variables["quant"]
+    for x, t in snaps:
+        _, upd = jnet.apply({"params": variables["params"], "quant": quant},
+                            jnp.asarray(x), jnp.full((2,), t, jnp.int32),
+                            mutable=["quant"], method=type(jnet).eps)
+        quant = upd["quant"]
+    want = jax_to_state_dict({"params": _np_tree(variables["params"]),
+                              "quant": _np_tree(quant)}, net)
+    bufs = quant_buffers(net)
+    for b in bufs.values():
+        b.zero_()
+    quantize.observe(net, process, [(torch.from_numpy(x), t) for x, t in snaps])
+    assert len(bufs) == 14
+    first_level = ("unet.resnets.0.", "unet.resnets.1.")
+    for key, b in bufs.items():
+        rtol = 1e-5 if key.startswith(first_level) else 3e-2
+        np.testing.assert_allclose(float(b), float(want[key]), rtol=rtol,
+                                   err_msg=key)
+    assert sum(k.startswith(first_level) for k in bufs) == 3
+
+
+@pytest.mark.parametrize("mode", ["noise", "trajectory"])
+def test_calibrate_fills_every_amax(models, mode):
+    _, _, net, process = models
+    bufs = quant_buffers(net)
+    for b in bufs.values():
+        b.zero_()
+    quantize.calibrate_conv_quant(CFG, net, process, batch_size=2,
+                                  n_points=4, mode=mode, seed=3)
+    assert all(float(b) > 0 for b in bufs.values())
+    first = {k: float(b) for k, b in bufs.items()}
+    for b in bufs.values():
+        b.zero_()
+    quantize.calibrate_conv_quant(CFG, net, process, batch_size=2,
+                                  n_points=4, mode=mode, seed=3)
+    assert {k: float(b) for k, b in bufs.items()} == first
+
+
+def test_maybe_calibrate_recalibrates_a_partly_zero_set(models):
+    """The port calibrates unless EVERY amax is > 0; JAX's any-rule keeps
+    a partly zero collection as it is (ROADMAP section 3)."""
+    jnet, variables, net, process = models
+    bufs = quant_buffers(net)
+    for i, b in enumerate(bufs.values()):
+        b.fill_(0.0 if i % 2 else 1.0)
+    quantize.maybe_calibrate(CFG, net, process, batch_size=2, mode="noise")
+    assert all(float(b) > 0 for b in bufs.values())
+    kept = {k: float(b) for k, b in bufs.items()}
+    quantize.maybe_calibrate(CFG, net, process, batch_size=2, mode="noise",
+                             seed=9)
+    assert {k: float(b) for k, b in bufs.items()} == kept
+    # the JAX package leaves the zeros
+    leaves, tree = jax.tree.flatten(variables["quant"])
+    partial = jax.tree.unflatten(tree, [jnp.float32(0.0 if i % 2 else 1.0)
+                                        for i in range(len(leaves))])
+    out = jax_maybe_calibrate(dict(CFG), jnet, None,
+                              {"params": variables["params"], "quant": partial},
+                              jax.random.PRNGKey(0))
+    assert sum(float(v) == 0.0 for v in jax.tree.leaves(out["quant"])) > 0
+
+
+def test_weights_are_quantized_once_until_they_change(models):
+    _, _, net, _ = models
+    conv = next(m for m in net.modules() if isinstance(m, Conv2d) and m.quant_sites)
+    first = conv._quant_weights()
+    assert conv._quant_weights() is first
+    with torch.no_grad():
+        conv.weight.mul_(2.0)
+    again = conv._quant_weights()
+    assert again is not first
+    torch.testing.assert_close(again[0].ws, first[0].ws * 2.0)
+
+
+def test_conv_quant_config_is_checked():
+    with pytest.raises(ValueError, match="conv_quant"):
+        Unet.from_config({"unet_chan": 8, "unet_in": 3, "unet_dims": (1, 2),
+                          "unet_dropout": 0.0, "use_pallas_attention": False,
+                          "conv_quant": "int4"})
+
+
+def test_setup_trainer_refuses_conv_quant():
+    cfg = dict(CFG, dataset="synthetic", n_steps=1, lr=1e-3, val_split=0)
+    with pytest.raises(ValueError, match="sampling/serving-only"):
+        setup_trainer(cfg, mute=True, device="cpu")
