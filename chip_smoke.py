@@ -81,19 +81,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    on the card against the CPU and the pairwise-distance tile against
    float64 numpy.  It prints one {"eval_path": ...} line.
 12. the int8 serving mode (after phase 11, before phase 10): Q1's ptxas
-   line (no spill allowed); Q1 (csrc/int8_conv.cu) against its plain
-   version, bit for bit, at the x2 UNet's five quantized shape classes at
-   B = 8 with and without a skip operand and at 128^2 c128 and 64^2 c256
-   at B = 192, timed against F.conv2d bf16 channels_last (library_ms: the
-   call the site makes without int8); generate_main --quant-conv int8 on
-   phase 11's x2 checkpoint (trajectory calibration at batch 4, the chain
-   cut to CHAIN_STEPS steps at B = 8, the decode) with the counters zeroed
-   just before and read just after: Q1 30 launches (32 operands) per UNet
-   eval, K1a/K1b 5 + 5 per eval, K2 3; two profiled chain steps at B =
-   192, bf16 / int8 / bf16; one f32 quantized UNet eval on the card
-   against the CPU's plain path on the same calibrated buffers; the
-   subpixel transposed conv (ops/convt.py) against F.conv_transpose2d at
-   the x2 Upsamples' shapes at B = 8 and 192, both timed.  It prints one
+   lines (every instantiation, no spill allowed); Q1 (csrc/int8_conv.cu)
+   against its plain version, bit for bit, at the x2 UNet's five
+   quantized shape classes at B = 8 and B = 192, with and without a skip
+   operand, on NCHW and on channels_last operands (at B = 8 also x and
+   the skip in different layouts), each timed beside its bound and
+   F.conv2d bf16 on the same layout (library_ms: the call the site makes
+   without int8; the kernels line takes the NCHW times, the layout the
+   path hands 24 of 30 launches); one int8 UNet eval with Q1's C entry
+   wrapped, which must get the very tensor each quantized conv was given
+   (no copy before Q1); two profiled chain steps at B = 192, int8 /
+   bf16 / int8 on the same weights, the layout copies listed;
+   generate_main --quant-conv int8 on phase 11's x2 checkpoint
+   (trajectory calibration at batch 4, the chain cut to CHAIN_STEPS
+   steps at B = 8, the decode) with the counters zeroed just before and
+   read just after: Q1 30 launches (32 operands) per UNet eval, K1a/K1b
+   5 + 5 per eval, K2 3; one f32 quantized UNet eval on the card against
+   the CPU's plain path on the same calibrated buffers; the subpixel
+   transposed conv (ops/convt.py) against F.conv_transpose2d at the x2
+   Upsamples' shapes at B = 8 and 192, both timed.  It prints one
    {"int8_path": ...} line.
 
 The last three lines are a JSON object with the kernels' numbers (one
@@ -1502,13 +1508,16 @@ PER[("int8_conv", "x2_sample_int8")] = (
     f"x2 chain step at B={B} with --quant-conv int8: {INT8_LAUNCHES} launches, "
     f"{INT8_OPERANDS} operands (" + ", ".join(
         f"{n1 + 2 * n2} at {hw}^2 c{c}" for hw, c, n1, n2 in INT8_CLASSES)
-    + "); library_ms: F.conv2d in bf16 on channels_last, one call per launch")
+    + "), on NCHW operands; library_ms: F.conv2d in bf16 on NCHW, "
+    "library_cl_ms on channels_last, one call per launch")
 
 
 def int8_inputs(hw, c, dtype, gen, bsz, skip):
-    """((x, qw, amax), kwargs) of one Q1 launch at a quantized conv's
-    shape: x ~ 2 N(0, 1), kaiming-scale weights, amax below max |x| (a
-    few values saturate), a bias, and with `skip` a second operand."""
+    """((x, qw, amax), kwargs, w) of one Q1 launch at a quantized conv's
+    shape, channels_last: x ~ 2 N(0, 1), kaiming-scale weights, amax
+    below max |x| (a few values saturate), a bias, and with `skip` a
+    second operand; w is the float kernel over x's (and the skip's)
+    channels, the float site's."""
     r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")
     cl = torch.channels_last
     x = (2.0 * r(bsz, c, hw, hw)).to(dtype).contiguous(memory_format=cl)
@@ -1523,57 +1532,145 @@ def int8_inputs(hw, c, dtype, gen, bsz, skip):
     return (x, qt.prepare_weight(w[:, :c]), x.float().abs().amax() * 0.9), kw, w
 
 
+def _as_layout(args, kw, fmt):
+    """The launch's operands copied into memory format fmt."""
+    x = args[0].contiguous(memory_format=fmt)
+    kw = dict(kw)
+    if "skip" in kw:
+        kw["skip"] = kw["skip"].contiguous(memory_format=fmt)
+    return (x,) + tuple(args[1:]), kw
+
+
+INT8_LAYOUTS = (("nchw", torch.contiguous_format), ("cl", torch.channels_last))
+
+
 def phase_int8_kernel(results) -> dict:
-    """Q1's ptxas line, Q1 against its plain version (bit for bit) at the
-    five shape classes at B, with and without a skip operand, and at
-    128^2 c128 and 64^2 c256 at B_BULK; Q1, its plain version and
-    F.conv2d bf16 channels_last (the call the site makes without int8)
-    timed per launch kind at B."""
+    """Q1's ptxas lines (every instantiation, no spill); then at B and at
+    B_BULK, at the five shape classes with and without a skip operand:
+    Q1 against its plain version, bit for bit, on NCHW and on
+    channels_last operands (and, at B, x and the skip in different
+    layouts), the output NCHW-contiguous; Q1 timed on both layouts
+    beside its bound and F.conv2d bf16 (the call the site makes without
+    int8) on the same layout.  The kernels line takes the B times on
+    NCHW operands, the layout the path hands 24 of a UNet eval's 30
+    launches (library_cl_ms: F.conv2d on channels_last)."""
     ptxas_check("int8_conv", "int8_conv_kernel")
     gen = torch.Generator(device="cuda").manual_seed(12)
     dt, out = torch.bfloat16, {}
-    for hw, c, n1, n2 in INT8_CLASSES:
-        for skip, n in ((False, n1), (True, n2)):
-            args, kw, w = int8_inputs(hw, c, dt, gen, B, skip)
-            got = qt.int8_conv_q(*args, **kw)
-            want = qt.plain(*args, **kw)
-            err = float((got.float() - want.float()).abs().max())
-            assert torch.equal(got, want), (hw, c, skip, err)
-            # the float site: one conv over x (and the skip, concatenated
-            # beforehand) with the bias
-            xin = (torch.cat([args[0], kw["skip"]], dim=1) if skip else args[0]
-                   ).contiguous(memory_format=torch.channels_last)
-            wb, bb = w.to(dt), kw["bias"].to(dt)
-            ms = cuda_ms(lambda: qt.int8_conv_q(*args, **kw), 50, reps=3)
-            lib = cuda_ms(lambda: F.conv2d(xin, wb, bb, padding=1), 50, reps=3)
-            pms = cuda_ms(lambda: qt.plain(*args, **kw), 2)
-            cost = qt.cost(B, hw, hw, c, c, 2, operands=2 if skip else 1)
-            bnd, by = bound_ms(cost, torch.int8)
-            accumulate(results, "int8_conv", "x2_sample_int8", n, ms, pms, bnd,
-                       cost, err, library_ms=lib)
-            key = f"{hw}^2 c{c}{' +skip' if skip else ''}"
-            out[key] = {"launches_per_eval": n, "ms": ms, "plain_ms": pms,
-                        "library_ms": lib, "bound_ms": bnd, "bound_by": by,
-                        "library_over_q1": lib / ms}
-            log(f"  Q1 {key} B={B}: {ms * 1e3:.1f} us (bound {bnd * 1e3:.1f} us, "
-                f"{by}; {bnd / ms:.1%}), plain {pms:.2f} ms, F.conv2d bf16 "
-                f"{lib * 1e3:.1f} us: int8 {lib / ms:.2f}x the bf16 conv; "
-                f"max_abs_err {err} [{card_line()}]")
-            del args, kw, w, xin, got, want
+    for bsz in (B, B_BULK):
+        iters = 50 if bsz == B else 10
+        for hw, c, n1, n2 in INT8_CLASSES:
+            for skip, n in ((False, n1), (True, n2)):
+                args, kw, w = int8_inputs(hw, c, dt, gen, bsz, skip)
+                want = qt.plain(*args, **kw)
+                pms = cuda_ms(lambda: qt.plain(*args, **kw), 2) if bsz == B else None
+                wb, bb = w.to(dt), kw["bias"].to(dt)
+                cost = qt.cost(bsz, hw, hw, c, c, 2, operands=2 if skip else 1)
+                bnd, by = bound_ms(cost, torch.int8)
+                key = f"{hw}^2 c{c}{' +skip' if skip else ''} B={bsz}"
+                row = {"launches_per_eval": n, "bound_ms": bnd, "bound_by": by,
+                       "plain_ms": pms}
+                cases = list(INT8_LAYOUTS)
+                if skip and bsz == B:
+                    cases.append(("mixed", None))
+                for name, fmt in cases:
+                    if fmt is None:     # x NCHW, the skip as made: channels_last
+                        a_, k_ = (args[0].contiguous(),) + args[1:], kw
+                    else:
+                        a_, k_ = _as_layout(args, kw, fmt)
+                    got = qt.int8_conv_q(*a_, **k_)
+                    err = float((got.float() - want.float()).abs().max())
+                    assert torch.equal(got, want), (key, name, err)
+                    assert got.is_contiguous() and got.dtype == dt, (key, name)
+                    if fmt is None:
+                        continue
+                    xin = (torch.cat([a_[0], k_["skip"]], dim=1) if skip
+                           else a_[0]).contiguous(memory_format=fmt)
+                    ms = cuda_ms(lambda: qt.int8_conv_q(*a_, **k_), iters, reps=3)
+                    lib = cuda_ms(lambda: F.conv2d(xin, wb, bb, padding=1), iters,
+                                  reps=3)
+                    row[name] = {"ms": ms, "library_ms": lib,
+                                 "share_of_bound": bnd / ms,
+                                 "library_over_q1": lib / ms}
+                    del xin, got
+                if bsz == B:
+                    accumulate(results, "int8_conv", "x2_sample_int8", n,
+                               row["nchw"]["ms"], pms, bnd, cost, 0.0,
+                               library_ms=row["nchw"]["library_ms"],
+                               library_cl_ms=row["cl"]["library_ms"])
+                out[key] = row
+                log(f"  Q1 {key}: NCHW {row['nchw']['ms'] * 1e3:.1f} us, channels_last "
+                    f"{row['cl']['ms'] * 1e3:.1f} us (bound {bnd * 1e3:.1f} us, {by}; "
+                    f"{bnd / row['nchw']['ms']:.1%} / {bnd / row['cl']['ms']:.1%}); "
+                    f"F.conv2d bf16 NCHW {row['nchw']['library_ms'] * 1e3:.1f} us, "
+                    f"channels_last {row['cl']['library_ms'] * 1e3:.1f} us; equal to "
+                    f"its plain version [{card_line()}]")
+                del args, kw, w, want
+                torch.cuda.empty_cache()
     results[("int8_conv", "x2_sample_int8")]["dtype"] = torch.int8
-    for hw, c in ((128, 128), (64, 256)):
-        args, kw, w = int8_inputs(hw, c, dt, gen, B_BULK, False)
-        got = qt.int8_conv_q(*args, **kw)
-        assert torch.equal(got, qt.plain(*args, **kw)), (hw, c, B_BULK)
-        ms = cuda_ms(lambda: qt.int8_conv_q(*args, **kw), 10, reps=3)
-        wb, bb = w.to(dt), kw["bias"].to(dt)
-        lib = cuda_ms(lambda: F.conv2d(args[0], wb, bb, padding=1), 10, reps=3)
-        bnd, by = bound_ms(qt.cost(B_BULK, hw, hw, c, c, 2), torch.int8)
-        out[f"{hw}^2 c{c} B={B_BULK}"] = {"ms": ms, "library_ms": lib,
-                                          "bound_ms": bnd, "bound_by": by}
-        log(f"  Q1 {hw}^2 c{c} B={B_BULK}: equal to its plain version; "
-            f"{ms:.3f} ms (bound {bnd:.3f}, {by}), F.conv2d bf16 {lib:.3f} ms")
-        del args, kw, w, got
+    return out
+
+
+def phase_int8_profile() -> dict:
+    """Two chain steps at B_BULK of the x2 UNet (random init, noise
+    calibration at batch 4) per label, int8 and bf16 on the same
+    weights, each profiled: device busy, idle share, Q1's and the layout
+    copies' ms a step.  Before it, one int8 UNet eval at B with Q1's C
+    entry wrapped: each launch must get the very tensor its conv module
+    was given (no copy between the Block before and Q1), NCHW or
+    channels_last."""
+    out = {}
+    cfg_q = dict(X2_CONFIG, conv_quant="int8")
+    net_q, proc_q, init_q, _ = build_model(cfg_q)
+    init_q(0)
+    calibrate_conv_quant(cfg_q, net_q, proc_q, batch_size=4, n_points=4,
+                         mode="noise")
+    seen, passed = [], []
+    hooks = [m.register_forward_pre_hook(lambda m, a: seen.append(
+        (a[0].data_ptr(), a[0].is_contiguous())))
+        for m in net_q.modules() if isinstance(m, Conv2d) and m.quant_sites]
+    lib = qt._lib()
+
+    class Recorder:
+        def int8_conv(self, *a):
+            passed.append(a[0].value)
+            return lib.int8_conv(*a)
+
+    with torch.no_grad(), mock.patch.object(qt, "_lib", lambda: Recorder()):
+        proc_q.eps_fn(proc_q.init_latent(B, seed=3),
+                      torch.full((B,), 500, device="cuda"))
+    for h in hooks:
+        h.remove()
+    assert len(seen) == len(passed) == INT8_LAUNCHES, (len(seen), len(passed))
+    assert [p for p, _ in seen] == passed, "a copy ran between a conv's input and Q1"
+    nchw = sum(c for _, c in seen)
+    log(f"  Q1 inputs: {nchw} of {len(seen)} launches of a UNet eval NCHW, the "
+        f"rest channels_last; every launch read its conv's input in place")
+    out["q1_inputs_nchw"] = [nchw, len(seen)]
+    net_b, proc_b, init_b, _ = build_model(X2_CONFIG)
+    init_b(0)
+    out["profile"] = []
+    for label in ("int8", "bf16", "int8"):
+        proc = proc_q if label == "int8" else proc_b
+        z = proc.init_latent(B_BULK, seed=11)
+        ts = [900, 899]
+        proc.p_sample_chain(z, ts, seed=11)
+        prof = device_profile(lambda: proc.p_sample_chain(z, ts, seed=11), 2,
+                              f"2 chain steps at B={B_BULK} ({label})")
+        if prof is not None:
+            by_cat, total, busy, idle = prof
+            q1 = by_cat.get("Q1 int8_conv", 0.0) / 2e3
+            copies = by_cat.get("layout copy", 0.0) / 2e3
+            out["profile"].append({
+                "label": label, "device_busy_ms": busy, "idle_share": idle,
+                "q1_ms": q1, "q1_share": q1 * 2e3 / total, "layout_copy_ms": copies,
+                "gemm_conv_ms": by_cat.get("gemm/conv", 0.0) / 2e3})
+            log(f"  {label} at B={B_BULK}: device busy {busy:.2f} ms/step, idle "
+                f"{idle:.3f}, Q1 {q1:.3f} ms/step ({q1 * 2e3 / total:.1%}), "
+                f"layout copy {copies:.3f} ms/step")
+        del z
+        torch.cuda.empty_cache()
+    del net_b, proc_b, net_q, proc_q
     torch.cuda.empty_cache()
     return out
 
@@ -1624,48 +1721,15 @@ def phase_int8(results):
                        "batch": B, "wall_s": wall, "sampling_s": timing["total_s"],
                        "launches": {k: launched[k] for k in want}}
 
-    # two chain steps at the bulk batch, bf16 against int8, same weights
+    out.update(phase_int8_profile())
+
+    # one f32 quantized UNet eval on the card against the CPU's plain path,
+    # the calibrated buffers of net_q on both
     cfg_q = dict(X2_CONFIG, conv_quant="int8")
     net_q, proc_q, init_q, _ = build_model(cfg_q)
     init_q(0)
     calibrate_conv_quant(cfg_q, net_q, proc_q, batch_size=4, n_points=4,
                          mode="noise")
-    # the layout Q1's wrapper gets: an NCHW-contiguous input is copied to NHWC
-    layouts = []
-    hooks = [m.register_forward_pre_hook(lambda m, a: layouts.append(
-        a[0].is_contiguous(memory_format=torch.channels_last)))
-        for m in net_q.modules() if isinstance(m, Conv2d) and m.quant_sites]
-    with torch.no_grad():
-        proc_q.eps_fn(proc_q.init_latent(B, seed=3),
-                      torch.full((B,), 500, device="cuda"))
-    for h in hooks:
-        h.remove()
-    log(f"  Q1 inputs already channels_last: {sum(layouts)} of {len(layouts)} "
-        f"launches of a UNet eval (the wrapper copies the rest to NHWC)")
-    out["q1_inputs_channels_last"] = [sum(layouts), len(layouts)]
-    net_b, proc_b, init_b, _ = build_model(X2_CONFIG)
-    init_b(0)
-    out["profile"] = {}
-    for label, proc in (("bf16", proc_b), ("int8", proc_q), ("bf16 again", proc_b)):
-        z = proc.init_latent(B_BULK, seed=11)
-        ts = [900, 899]
-        proc.p_sample_chain(z, ts, seed=11)
-        prof = device_profile(lambda: proc.p_sample_chain(z, ts, seed=11), 2,
-                              f"2 chain steps at B={B_BULK} ({label})")
-        if prof is not None:
-            by_cat, total, busy, idle = prof
-            q1 = by_cat.get("Q1 int8_conv", 0.0) / 1e3 / 2
-            out["profile"][label] = {"device_busy_ms": busy, "idle_share": idle,
-                                     "q1_ms": q1, "q1_share": q1 * 2e3 / total,
-                                     "gemm_conv_ms": by_cat.get("gemm/conv", 0.0) / 2e3}
-            log(f"  {label} at B={B_BULK}: device busy {busy:.2f} ms/step, idle "
-                f"{idle:.3f}, Q1 {q1:.3f} ms/step ({q1 * 2e3 / total:.1%})")
-        del z
-        torch.cuda.empty_cache()
-    del net_b, proc_b
-
-    # one f32 quantized UNet eval on the card against the CPU's plain path,
-    # the calibrated buffers of net_q on both
     cfg32 = dict(cfg_q, compute_dtype="float32")
     net_g, proc_g, _, _ = build_model(cfg32)
     net_c, proc_c, _, _ = build_model(cfg32, device="cpu")

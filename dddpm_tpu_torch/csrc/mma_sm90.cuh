@@ -1,8 +1,9 @@
 // Fragment helpers for the tensor-core kernels (sm_90a): cp.async,
-// ldmatrix and mma.sync.m16n8k16 with bf16 operands and f32 sums.
-// Included by winograd.cu (K6), conv3x3.cu (K5), convres_fwd.cu (K2),
-// convres_bwd.cu (K3, through convres_sm90.cuh), attention_block.cu (K1a,
-// K1b) and probe_cmajor_conv.cu (P4), so that they use one copy of each.
+// ldmatrix, stmatrix / movmatrix and mma.sync.m16n8k16 with bf16
+// operands and f32 sums.  Included by winograd.cu (K6), conv3x3.cu (K5),
+// convres_fwd.cu (K2), convres_bwd.cu (K3, through convres_sm90.cuh),
+// attention_block.cu (K1a, K1b), probe_cmajor_conv.cu (P4) and
+// int8_conv.cu (Q1), so that they use one copy of each.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,6 +52,17 @@ __device__ __forceinline__ void stmatrix_x4_trans(void* p, const unsigned r[4]) 
       "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1,%2,%3,%4};\n"
       ::"r"(smem_addr(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
       : "memory");
+}
+
+// the transpose of an 8 x 8 b16 matrix held in ldmatrix_x4's fragment
+// layout (thread t: row t / 4, columns 2 (t % 4) and 2 (t % 4) + 1, the
+// first in the low half): afterwards thread t holds the same places of
+// the transpose
+__device__ __forceinline__ unsigned movmatrix_trans(unsigned a) {
+  unsigned d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d) : "r"(a));
+  return d;
 }
 
 // c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 sums

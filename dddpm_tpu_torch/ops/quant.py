@@ -23,7 +23,10 @@ On a CUDA tensor `int8_conv` launches the hand-written kernel
 compute the same integers and round the same way (IEEE division,
 round-half-to-even, one f32 multiply by the scale product formed first,
 one f32 add, one rounding to x's dtype), so they agree bit for bit.
-NCHW tensors (channels_last on the model's path), OIHW weights.
+NCHW tensors, OIHW weights.  Q1 reads each operand in place, whether it
+is NCHW-contiguous (what a Block's GroupNorm -> mish hands the next
+conv) or channels_last, and writes y NCHW-contiguous, which the Block's
+GroupNorm reads without a copy; `plain` returns the same format.
 """
 from __future__ import annotations
 
@@ -35,8 +38,9 @@ import torch.nn.functional as F
 
 from dddpm_tpu_torch.ops import _build
 
-CIN_STEP = 32     # csrc/int8_conv.cu: one m16n8k32 k step of input channels
-COUT_STEP = 64    # one warp's output channels
+CIN_STEP = 32     # csrc/int8_conv.cu: one k32 step of input channels
+COUT_STEP = 64    # output channels Q1 takes in steps of
+NPAD_STEP = 128   # the packed weights' rows: Cout rounded up to a wgmma n128 tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the C entry; chip_smoke.py reads it
@@ -87,18 +91,31 @@ def observed_amax(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 class QWeight(NamedTuple):
     """A quantized 3x3 kernel: `wq` (Cout, Cin, 3, 3) int8, `ws` (Cout,)
-    f32, and `taps` (9, Cout, Cin) int8, the kernel's layout (tap-major,
-    input channels contiguous)."""
+    f32, and `packed`, the kernel's layout, or None where Q1 does not
+    take the shape (Cin % CIN_STEP or Cout % COUT_STEP): int8 (9, Cin /
+    32, Npad / 8, 2, 8, 16), Npad = Cout rounded up to NPAD_STEP with zero
+    rows; per tap and 32 input channels, the 8-row x 16-byte core
+    matrices of wgmma's K-major B operand (csrc/int8_conv.cu)."""
     wq: torch.Tensor
     ws: torch.Tensor
-    taps: torch.Tensor
+    packed: Optional[torch.Tensor]
+
+
+def pack_weight(wq: torch.Tensor) -> torch.Tensor:
+    """An OIHW int8 kernel in Q1's packed layout (see QWeight)."""
+    cout, cin = wq.shape[:2]
+    npad = -(-cout // NPAD_STEP) * NPAD_STEP
+    taps = torch.zeros((9, npad, cin), dtype=torch.int8, device=wq.device)
+    taps[:, :cout] = wq.permute(2, 3, 0, 1).reshape(9, cout, cin)
+    return (taps.reshape(9, npad // 8, 8, cin // 32, 2, 16)
+            .permute(0, 3, 1, 4, 2, 5).contiguous())
 
 
 def prepare_weight(w: torch.Tensor) -> QWeight:
     wq, ws = quantize_weight(w)
     cout, cin = wq.shape[:2]
-    taps = wq.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
-    return QWeight(wq, ws, taps)
+    fits = cin % CIN_STEP == 0 and cout % COUT_STEP == 0
+    return QWeight(wq, ws, pack_weight(wq) if fits else None)
 
 
 def _dequant_plain(x, qw: QWeight, amax) -> torch.Tensor:
@@ -124,25 +141,41 @@ def plain(x, qw: QWeight, amax, skip=None, qw_skip: Optional[QWeight] = None,
     y = y.to(x.dtype)
     if bias is not None:
         y = y + bias.to(x.dtype)[None, :, None, None]
-    return y.contiguous(memory_format=torch.channels_last)
+    return y.contiguous()
 
 
-def _lib():
-    lib = _build.load("int8_conv")
+def bind(lib):
+    """Q1's library with its C entry's argument types set."""
     if lib.int8_conv.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.int8_conv.argtypes = [vp] * 10 + [i] * 6 + [vp]
+        lib.int8_conv.argtypes = [vp] * 10 + [i] * 8 + [vp]
         lib.int8_conv.restype = i
     return lib
 
 
-def _nhwc(t: torch.Tensor) -> torch.Tensor:
-    """t (B, C, H, W) as a contiguous NHWC view (no copy when t is
-    channels_last), 16-byte aligned."""
-    v = t.permute(0, 2, 3, 1)
-    if not v.is_contiguous():
-        return v.contiguous()
-    return v.clone() if v.data_ptr() % 16 else v
+def _lib():
+    return bind(_build.load("int8_conv"))
+
+
+def _layout(t: torch.Tensor) -> int:
+    """Q1's layout code of an operand (B, C, H, W): 1 when it is
+    NCHW-contiguous, 0 when it is channels_last; raises on any other
+    strides.  Q1 reads either in place."""
+    if t.is_contiguous():
+        return 1
+    if t.is_contiguous(memory_format=torch.channels_last):
+        return 0
+    raise ValueError(f"kernel takes NCHW-contiguous or channels_last "
+                     f"operands, got strides {t.stride()}")
+
+
+def _readable(t: torch.Tensor, nchw: int) -> torch.Tensor:
+    """t itself where Q1's TMA can read it in place: 16-byte aligned, and,
+    when NCHW, rows of a multiple of 16 bytes (W % 8 in bf16, W % 4 in
+    f32); else a channels_last copy.  No model shape needs the copy."""
+    if t.data_ptr() % 16 or (nchw and t.shape[3] * t.element_size() % 16):
+        return torch.empty_like(t, memory_format=torch.channels_last).copy_(t)
+    return t
 
 
 def _kernel(x, qw, amax, skip, qw_skip, amax_skip, bias):
@@ -162,35 +195,39 @@ def _kernel(x, qw, amax, skip, qw_skip, amax_skip, bias):
             raise ValueError(f"skip must match x: {tuple(skip.shape)} "
                              f"{skip.dtype} vs {tuple(x.shape)} {x.dtype}")
         operands.append((skip, qw_skip, amax_skip))
+    npad = -(-cout // NPAD_STEP) * NPAD_STEP
+    want = (9, cin // 32, npad // 8, 2, 8, 16)
     for v, q, a in operands:
         if v.device != x.device:
             raise ValueError(f"operands on {v.device} and {x.device}")
-        if tuple(q.taps.shape) != (9, cout, cin) or q.taps.dtype != torch.int8:
-            raise ValueError(f"weights must be (9, {cout}, {cin}) int8, got "
-                             f"{tuple(q.taps.shape)} {q.taps.dtype}")
-        for t in (q.taps, q.ws, a):
+        if q.packed is None or tuple(q.packed.shape) != want or \
+                q.packed.dtype != torch.int8 or not q.packed.is_contiguous():
+            raise ValueError(f"weights must be packed {want} int8 (prepare_weight)")
+        for t in (q.packed, q.ws, a):
             if t.device != x.device:
                 raise ValueError(f"weights and amax must be on {x.device}")
         if a.numel() != 1 or a.dtype != torch.float32:
             raise ValueError("amax must be one float32 value")
     if bias is not None and (bias.numel() != cout or bias.device != x.device):
         raise ValueError(f"bias must hold {cout} values on {x.device}")
-    xs = [_nhwc(v) for v, _, _ in operands]
-    taps = [q.taps.contiguous() for _, q, _ in operands]
+    xs = [_readable(v, _layout(v)) for v, _, _ in operands]
+    layouts = [_layout(v) for v in xs]
+    packed = [q.packed for _, q, _ in operands]
     ws = [q.ws.float().contiguous() for _, q, _ in operands]
     amaxes = [a.reshape(1).contiguous() for _, _, a in operands]
-    y = torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device)
+    y = torch.empty((bsz, cout, h, w), dtype=x.dtype, device=x.device)
     bias_f = None if bias is None else bias.float().contiguous()
     p = lambda t: ctypes.c_void_p(None) if t is None else _build.ptr(t)
     sk = (lambda lst: p(lst[1]) if len(lst) > 1 else ctypes.c_void_p(None))
     lib = _lib()
     LAUNCHES["int8_conv"] += 1
     _build.check(lib.int8_conv(
-        p(xs[0]), p(taps[0]), p(ws[0]), p(amaxes[0]),
-        sk(xs), sk(taps), sk(ws), sk(amaxes), p(bias_f), p(y),
-        bsz, h, w, cin, cout, _DTYPES[x.dtype], _build.stream(x)),
+        p(xs[0]), p(packed[0]), p(ws[0]), p(amaxes[0]),
+        sk(xs), sk(packed), sk(ws), sk(amaxes), p(bias_f), p(y),
+        bsz, h, w, cin, cout, _DTYPES[x.dtype], layouts[0],
+        layouts[-1] if len(layouts) > 1 else 0, _build.stream(x)),
         "int8_conv")
-    return y.permute(0, 3, 1, 2)
+    return y
 
 
 class _Int8Conv(torch.autograd.Function):
@@ -215,8 +252,10 @@ def int8_conv_q(x, qw: QWeight, amax, skip=None,
     """The W8A8 3x3 SAME stride-1 conv on prepared weights: NCHW x (B,
     Cin, H, W) in f32 or bf16, `amax` a one-value f32 tensor on x's
     device; optional skip operand (x's shape) with its own weights and
-    amax, and a (Cout,) bias added after the rounding to x's dtype.  A
-    CPU tensor takes `plain`; a CUDA tensor launches Q1 or raises."""
+    amax, and a (Cout,) bias added after the rounding to x's dtype.
+    Operands may be NCHW-contiguous or channels_last, each its own; the
+    result (B, Cout, H, W) in x's dtype is NCHW-contiguous.  A CPU
+    tensor takes `plain`; a CUDA tensor launches Q1 or raises."""
     if (skip is None) != (qw_skip is None) or (skip is None) != (amax_skip is None):
         raise ValueError("skip, qw_skip and amax_skip come together")
     if x.device.type not in ("cpu", "cuda"):

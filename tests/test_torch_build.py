@@ -92,18 +92,43 @@ def test_tensor_core_kernels_share_one_copy_of_the_fragment_helpers(name):
 def test_int8_kernel_rounds_as_its_plain_version():
     """Q1 takes its s8 helpers from csrc/mma_s8_sm90.cuh, and every float
     step that decides its bits is a correctly rounded intrinsic (never
-    contracted into an FMA): the division of the quantize, the scale
-    product, the dequantize multiply and the skip operand's add."""
+    contracted into an FMA): the quantize's division (or its reciprocal
+    product where that provably rounds alike), the scale product, the
+    dequantize multiply and the skip operand's add."""
     source = (_build.CSRC / "int8_conv.cu").read_text()
     header = (_build.CSRC / "mma_s8_sm90.cuh").read_text()
     assert '#include "mma_s8_sm90.cuh"' in source
-    for helper in ("void mma_s8(", "int quantize_s8(", "unsigned pack_s8x4("):
+    for helper in ("void wgmma_s8_n128(", "int quantize_s8(", "uint2 quantize8_s8(",
+                   "unsigned pack_s8x4("):
         assert helper in header and helper not in source, helper
     assert "__fdiv_rn(v, xs)" in header and "__float2int_rn" in header
+    # the 8-wide quantize: v * (1 / xs) correctly rounded decides, except
+    # near a .5 tie, where the IEEE division does
+    for op in ("__fmul_rn(v[j], inv)", "q[j] = quantize_s8(v[j], xs)"):
+        assert op in header, op
+    assert "__frcp_rn(xs0)" in source
     for op in ("__fdiv_rn(fmaxf(", "__fmul_rn(xs, ", "__fmul_rn(__int2float_rn(",
-               "__fadd_rn(y[mi][nt][i], v)"):
+               "__fadd_rn(y[j * 4 + i], v[i])"):
         assert op in source, op
     assert "use_fast_math" not in " ".join(_build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("name", ["int8_conv"])
+def test_wgmma_kernels_share_one_copy_of_the_hopper_helpers(name):
+    """Q1 takes its mbarrier, bulk-copy, TMA, named-barrier, setmaxnreg
+    and wgmma helpers from csrc/wgmma_sm90.cuh, defines none of them and
+    holds no inline PTX of its own."""
+    source = (_build.CSRC / f"{name}.cu").read_text()
+    header = (_build.CSRC / "wgmma_sm90.cuh").read_text()
+    assert '#include "wgmma_sm90.cuh"' in source
+    for helper in ("void mbar_init(", "void mbar_fence_init(", "void mbar_arrive(",
+                   "void mbar_arrive_expect_tx(", "void mbar_wait(", "void bulk_g2s(",
+                   "void setmaxnreg_inc(", "void setmaxnreg_dec(", "void wgmma_fence(",
+                   "void wgmma_commit(", "void wgmma_wait(", "void wgmma_fence_operand(",
+                   "void compiler_barrier(", "uint64_t wgmma_desc(", "void tma_load_4d(",
+                   "bool make_tensor_map_4d(", "void bar_sync("):
+        assert helper in header and helper not in source, helper
+    assert "asm" not in source
 
 
 @pytest.mark.parametrize("name", ["conv3x3", "convres_fwd"])

@@ -860,19 +860,74 @@ def _int8_args(card, bsz, h, w, cin, cout, dtype, seed, skip):
     return (x, qw, amax), extra
 
 
-@pytest.mark.parametrize("skip", [False, True])
+# (skip, x's layout, the skip's layout): Q1 reads each operand as it lies
+INT8_LAYOUTS = [(False, "nchw", None), (False, "cl", None),
+                (True, "nchw", "nchw"), (True, "cl", "cl"),
+                (True, "nchw", "cl"), (True, "cl", "nchw")]
+_FMT = {"nchw": torch.contiguous_format, "cl": torch.channels_last}
+
+
+@pytest.mark.parametrize("skip,x_layout,skip_layout", INT8_LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bsz,h,w,cin,cout", INT8_SHAPES)
-def test_int8_conv_kernel_equals_plain(card, dtype, skip, bsz, h, w, cin, cout):
-    """Q1 against its plain version: equal, bit for bit."""
+def test_int8_conv_kernel_equals_plain(card, dtype, skip, x_layout, skip_layout,
+                                       bsz, h, w, cin, cout):
+    """Q1 against its plain version: equal, bit for bit, whatever the
+    operands' layouts; one launch, an NCHW-contiguous output."""
     args, extra = _int8_args(card, bsz, h, w, cin, cout, dtype, h + cin, skip)
+    args = (args[0].contiguous(memory_format=_FMT[x_layout]),) + args[1:]
+    if skip:
+        extra["skip"] = extra["skip"].contiguous(memory_format=_FMT[skip_layout])
     before = qt.LAUNCHES["int8_conv"]
     got = qt.int8_conv_q(*args, **extra)
     assert qt.LAUNCHES["int8_conv"] == before + 1
     want = qt.plain(*args, **extra)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (bsz, cout, h, w)
+    assert got.is_contiguous()
     assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+def test_int8_block_runs_with_no_layout_copy(card):
+    """One quantized Block (64^2, c128, bf16) fed what the Block before
+    it gives (GroupNorm -> mish, NCHW): Q1 gets that very tensor, writes
+    NCHW, and GroupNorm reads Q1's output with no copy kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dddpm_tpu_torch.models.blocks import Block
+
+    torch.manual_seed(0)
+    blocks = [Block(128, 128, compute_dtype=torch.bfloat16, quant="int8").to(card)
+              for _ in range(2)]
+    for b in blocks:
+        b.conv.amax_x.fill_(3.0)
+    x0 = torch.randn(2, 128, 64, 64, device=card).to(torch.bfloat16)
+    with torch.no_grad():
+        h = blocks[0](x0)
+    assert h.is_contiguous() and h.dtype == torch.bfloat16
+    passed, conv_out = [], []
+    lib = qt._lib()
+
+    class Recorder:
+        def int8_conv(self, *a):
+            passed.append(a[0].value)
+            return lib.int8_conv(*a)
+
+    hook = blocks[1].conv.register_forward_hook(lambda m, a, y: conv_out.append(y))
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(qt, "_lib", lambda: Recorder())
+        blocks[1](h)
+    hook.remove()
+    assert passed == [h.data_ptr()]
+    y = conv_out[0].float()
+    assert y.is_contiguous()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        blocks[1].norm(y)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert names, "the profiler saw no kernel"
+    assert not [n for n in names if "copy" in n.lower()], names
 
 
 def _reciprocal_flips(xs: float, n: int = 16) -> np.ndarray:
@@ -914,7 +969,7 @@ def test_int8_conv_check_fails_a_wrong_plain(card, fault, monkeypatch):
     got = qt.int8_conv_q(x, qw, amax, **extra)
     assert torch.equal(got, qt.plain(x, qw, amax, **extra))
     if fault == "transposed_taps":
-        qw = qt.QWeight(qw.wq.transpose(2, 3).contiguous(), qw.ws, qw.taps)
+        qw = qt.QWeight(qw.wq.transpose(2, 3).contiguous(), qw.ws, qw.packed)
     else:
         monkeypatch.setattr(qt, "quantize_act", lambda v, s: torch.clamp(
             torch.round(v.float() * (1.0 / s)), -127, 127).to(torch.int8))

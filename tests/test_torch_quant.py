@@ -11,6 +11,8 @@ rounds differently in the two frameworks, an activation that lands
 within that difference of a .5 boundary quantizes one step apart (a
 flip), and the flips cascade (test_quantized_unet_matches_jax)."""
 import numpy as np
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import pytest
@@ -96,10 +98,14 @@ def test_quantize_act_and_observed_amax_equal_jax(dtype):
         float(jq.observed_amax(x, prev)))
 
 
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
 @pytest.mark.parametrize("skip", [False, True])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_int8_conv_plain_equals_jax_exactly(dtype, skip):
+def test_int8_conv_plain_equals_jax_exactly(dtype, skip, layout):
+    """The plain version equals JAX's int8_conv whatever the operands'
+    memory format, and returns NCHW-contiguous, as Q1 does."""
     jdt, tdt = DTYPES[dtype]
+    fmt = {"channels_last": torch.channels_last, "nchw": torch.contiguous_format}[layout]
     rng = np.random.default_rng(2)
     x = jnp.asarray(rng.normal(size=(2, 8, 8, 128)) * 2.0, jnp.float32).astype(jdt)
     s = jnp.asarray(rng.normal(size=(2, 8, 8, 128)) * 5.0, jnp.float32).astype(jdt)
@@ -108,16 +114,166 @@ def test_int8_conv_plain_equals_jax_exactly(dtype, skip):
     ax = jnp.max(jnp.abs(x.astype(jnp.float32))) * 0.7
     a_s = jnp.max(jnp.abs(s.astype(jnp.float32))) * 0.9
     wt = torch.from_numpy(w).permute(3, 2, 0, 1)
+    xt = _nchw(x, tdt).contiguous(memory_format=fmt)
     if skip:
         want = (jq.int8_conv(x, w[:, :, :128], ax)
                 + jq.int8_conv(s, w[:, :, 128:], a_s)).astype(jdt)
-        got = tq.int8_conv(_nchw(x, tdt), wt[:, :128], torch.tensor(float(ax)),
-                           _nchw(s, tdt), wt[:, 128:], torch.tensor(float(a_s)))
+        got = tq.int8_conv(xt, wt[:, :128], torch.tensor(float(ax)),
+                           _nchw(s, tdt).contiguous(memory_format=fmt),
+                           wt[:, 128:], torch.tensor(float(a_s)))
     else:
         want = jq.int8_conv(x, w[:, :, :128], ax).astype(jdt)
-        got = tq.int8_conv(_nchw(x, tdt), wt[:, :128], torch.tensor(float(ax)))
+        got = tq.int8_conv(xt, wt[:, :128], torch.tensor(float(ax)))
     assert got.dtype == tdt and got.shape == (2, 128, 8, 8)
+    assert got.is_contiguous()
     np.testing.assert_array_equal(_nhwc(got), np.asarray(want.astype(jnp.float32)))
+
+
+def test_packed_weights_are_the_kernels_layout():
+    """pack_weight: packed[tap, slab, ng, kc, row, byte] is w[n, c, dy,
+    dx] with n = 8 ng + row, c = 32 slab + 16 kc + byte, tap = 3 dy + dx;
+    the rows past Cout (up to a multiple of 128) are zero."""
+    rng = np.random.default_rng(7)
+    wq = torch.from_numpy(rng.integers(-127, 128, (192, 64, 3, 3)).astype(np.int8))
+    packed = tq.pack_weight(wq)
+    assert packed.shape == (9, 2, 32, 2, 8, 16) and packed.dtype == torch.int8
+    p = packed.numpy()
+    w = wq.numpy()
+    for tap, slab, ng, kc, row, byte in [(0, 0, 0, 0, 0, 0), (4, 1, 3, 1, 5, 9),
+                                         (8, 1, 23, 1, 7, 15), (5, 0, 17, 0, 2, 11)]:
+        assert p[tap, slab, ng, kc, row, byte] == w[8 * ng + row, 32 * slab + 16 * kc + byte,
+                                                    tap // 3, tap % 3]
+    full = p.transpose(0, 2, 4, 1, 3, 5).reshape(3, 3, 256, 64)
+    np.testing.assert_array_equal(full[:, :, :192], w.transpose(2, 3, 0, 1))
+    assert not full[:, :, 192:].any()
+    assert tq.prepare_weight(torch.randn(64, 48, 3, 3)).packed is None
+
+
+def _quantize8_rule(v: np.ndarray, xs: np.float32):
+    """csrc/mma_s8_sm90.cuh:quantize8_s8's decision in numpy float32 (each
+    op correctly rounded, as the CUDA intrinsics): the integers from p =
+    v * (1 / xs), and whether p lies within 1e-4 of a .5 tie."""
+    m = np.float32(12582912.0)
+    inv = np.float32(1.0) / xs
+    p = v * inv
+    f = p - ((p + m) - m)
+    tie = np.abs(np.abs(f) - np.float32(0.5)) < np.float32(1e-4)
+    return np.clip(np.rint(p), -127, 127), tie
+
+
+def test_quantize8_rule_equals_the_division_away_from_ties():
+    """Where Q1's 8-wide quantize takes v * (1 / xs), its integer equals
+    round(v / xs) (IEEE float32 division, half to even, clamped) for
+    every value; the values whose reciprocal product rounds otherwise
+    (next to .5 ties) are all flagged for the division."""
+    rng = np.random.default_rng(11)
+    with np.errstate(over="ignore", invalid="ignore"):
+        for amax in (1e-9, 0.37, 3.0, 17.5, 250.0, 6e4):
+            xs = np.float32(max(amax, 1e-12)) / np.float32(127.0)
+            v = (rng.standard_normal(400_000) * amax * 0.7).astype(np.float32)
+            # values at and beside every tie of the scale, and past the clamp
+            ties = ((np.arange(-130, 130) + np.float32(0.5)) * xs).astype(np.float32)
+            near = np.concatenate([np.nextafter(ties, np.float32(np.inf)),
+                                   np.nextafter(ties, np.float32(-np.inf)), ties])
+            v = np.concatenate([v, near, (v[:1000] * 300).astype(np.float32)])
+            want = np.clip(np.rint(v / xs), -127, 127)
+            got, tie = _quantize8_rule(v, xs)
+            np.testing.assert_array_equal(got[~tie], want[~tie])
+            assert tie.mean() < 0.05 and tie[-3 * len(ties) - 1000:-1000].any()
+
+
+class _Recorder:
+    """Stands in for Q1's library: records each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def int8_conv(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+# (x's layout, the skip's layout or None)
+_KERNEL_LAYOUTS = [("nchw", None), ("cl", None), ("nchw", "nchw"),
+                   ("cl", "cl"), ("nchw", "cl"), ("cl", "nchw")]
+_FMT = {"nchw": torch.contiguous_format, "cl": torch.channels_last}
+
+
+@pytest.mark.parametrize("x_layout,skip_layout", _KERNEL_LAYOUTS)
+def test_kernel_passes_each_operand_in_place(monkeypatch, x_layout, skip_layout):
+    """Q1's wrapper, with the library and the stream replaced by a
+    recorder, on CPU tensors: each operand's own data_ptr and its layout
+    code (1 NCHW, 0 channels_last) reach the C entry, with no copy; y is
+    (B, Cout, H, W) NCHW-contiguous in x's dtype."""
+    rec = _Recorder()
+    monkeypatch.setattr(tq, "_lib", lambda: rec)
+    monkeypatch.setattr(tq._build, "stream", lambda t: ctypes.c_void_p(None))
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 64, 5, 8, generator=gen).to(torch.bfloat16).contiguous(
+        memory_format=_FMT[x_layout])
+    qw = tq.prepare_weight(torch.randn(128, 64, 3, 3, generator=gen))
+    kw = {}
+    if skip_layout:
+        kw = dict(skip=torch.randn(2, 64, 5, 8, generator=gen).to(torch.bfloat16)
+                  .contiguous(memory_format=_FMT[skip_layout]),
+                  qw_skip=tq.prepare_weight(torch.randn(128, 64, 3, 3, generator=gen)),
+                  amax_skip=torch.tensor(2.0))
+    before = tq.LAUNCHES["int8_conv"]
+    y = tq._kernel(x, qw, torch.tensor(3.0), kw.get("skip"), kw.get("qw_skip"),
+                   kw.get("amax_skip"), None)
+    assert tq.LAUNCHES["int8_conv"] == before + 1
+    (args,) = rec.calls
+    assert args[0].value == x.data_ptr() and args[1].value == qw.packed.data_ptr()
+    assert args[16] == (1 if x_layout == "nchw" else 0)
+    if skip_layout:
+        assert args[4].value == kw["skip"].data_ptr()
+        assert args[5].value == kw["qw_skip"].packed.data_ptr()
+        assert args[17] == (1 if skip_layout == "nchw" else 0)
+    else:
+        assert args[4].value is None
+    assert args[9].value == y.data_ptr()
+    assert args[10:16] == (2, 5, 8, 64, 128, 1)
+    assert y.shape == (2, 128, 5, 8) and y.dtype == torch.bfloat16
+    assert y.is_contiguous()
+
+
+def test_kernel_copies_only_an_operand_it_cannot_read(monkeypatch):
+    """An NCHW operand whose rows are not a multiple of 4 values, or a
+    view that is not 16-byte aligned, reaches Q1 as a channels_last copy
+    (layout code 0); the other operand still goes in place."""
+    rec = _Recorder()
+    monkeypatch.setattr(tq, "_lib", lambda: rec)
+    monkeypatch.setattr(tq._build, "stream", lambda t: ctypes.c_void_p(None))
+    qw = tq.prepare_weight(torch.randn(64, 64, 3, 3))
+    odd = torch.randn(1, 64, 6, 7)                       # NCHW, W = 7
+    whole = torch.randn(2, 64, 6, 8).contiguous(memory_format=torch.channels_last)
+    view = whole[1:]                                     # 12 KB in: aligned
+    shifted = torch.randn(64 * 6 * 8 + 2)[2:].reshape(1, 6, 8, 64).permute(0, 3, 1, 2)
+    assert view.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 == 8
+    tq._kernel(odd, qw, torch.tensor(1.0), None, None, None, None)
+    tq._kernel(view, qw, torch.tensor(1.0), torch.randn(1, 64, 6, 8), qw,
+               torch.tensor(1.0), None)
+    tq._kernel(shifted, qw, torch.tensor(1.0), None, None, None, None)
+    (a1,), (a2,), (a3,) = [[c] for c in rec.calls]
+    assert a1[0].value != odd.data_ptr() and a1[16] == 0
+    assert a2[0].value == view.data_ptr() and a2[16] == 0 and a2[17] == 1
+    assert a3[0].value != shifted.data_ptr() and a3[0].value % 16 == 0 and a3[16] == 0
+
+
+@pytest.mark.parametrize("which", ["x", "skip"])
+def test_kernel_refuses_a_layout_it_does_not_take(monkeypatch, which):
+    """An operand that is neither NCHW-contiguous nor channels_last (a
+    strided view) raises before any launch."""
+    rec = _Recorder()
+    monkeypatch.setattr(tq, "_lib", lambda: rec)
+    monkeypatch.setattr(tq._build, "stream", lambda t: ctypes.c_void_p(None))
+    good = torch.randn(1, 64, 6, 6)
+    view = torch.randn(1, 64, 6, 12)[..., ::2]
+    qw = tq.prepare_weight(torch.randn(64, 64, 3, 3))
+    x, skip = (view, good) if which == "x" else (good, view)
+    with pytest.raises(ValueError, match="NCHW-contiguous or channels_last"):
+        tq._kernel(x, qw, torch.tensor(1.0), skip, qw, torch.tensor(1.0), None)
+    assert rec.calls == []
 
 
 def test_int8_conv_has_no_gradient():
