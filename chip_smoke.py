@@ -101,6 +101,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    transposed conv (ops/convt.py) against F.conv_transpose2d at the x2
    Upsamples' shapes at B = 8 and 192, both timed.  It prints one
    {"int8_path": ...} line.
+13. the widths past the tuned kernels' (after phase 12, before phase
+   10): K2's and K3's width-general route (csrc/convres_general.cu)
+   against their plain versions at (cm, cio) = (64, 128), (96, 192),
+   (128, 256) and (32, 96), B = 2, 128^2 (K2 with no scaling, 'up' and
+   'down'), bf16 and f32, each timed eager beside its bound, and K3's
+   bits equal across two launches at cm 128; the x2 sampling path at
+   d_chans 128 (generate_samples, 2 chain steps and the decode, B = 8)
+   with the counters zeroed: K2 general at each of the upsampler's three
+   fused blocks; one x3 train step at d_chans 128 (B = 8 x accumulation
+   2, 4 recon rows per micro-batch) with remat off and on, counted
+   likewise (K2 general 26, K3 general 18), the losses equal and both
+   peaks of device memory printed; Q1 against its plain version, bit for
+   bit, at C = 144 and 160 on both layouts with and without the skip
+   operand, and an int8 unet_chan 160 model's chain steps with Q1 at
+   every quantized conv; K4, K5 and K6 at one ragged width each against
+   their plain versions.  It prints one {"widths_path": ...} line.
 
 The last three lines are a JSON object with the kernels' numbers (one
 entry per kernel and path, its launches counted on that path's own run),
@@ -183,15 +199,17 @@ ATTN_SITES = [(16384, 128), (4096, 256), (1024, 256), (1024, 256), (4096, 128)]
 # the three decoder ConvResBlocks (H, W, scale), plus the downsampler's
 CONVRES_DECODE = [(128, 128, "up"), (256, 256, None), (256, 256, None)]
 CONVRES_DOWN = (256, 256, "down")
-KERNELS = ["attention_block", "convres_fwd", "convres_bwd", "conv3x3",
-           "winograd", "linear_attention", "int8_conv", "probe_attention",
-           "probe_copy", "probe_convres", "probe_cmajor_conv"]
+KERNELS = ["attention_block", "convres_fwd", "convres_bwd", "convres_general",
+           "conv3x3", "winograd", "linear_attention", "int8_conv",
+           "probe_attention", "probe_copy", "probe_convres", "probe_cmajor_conv"]
 REPLACES = {
     "attn_ctx": "dddpm_tpu/ops/pallas/attention_block.py:148",
     "attn_out": "dddpm_tpu/ops/pallas/attention_block.py:210",
     "attn_1pass": "dddpm_tpu/ops/pallas/attention_block.py:227",
     "convres_fwd": "dddpm_tpu/ops/pallas/convres.py:250",
     "convres_bwd": "dddpm_tpu/ops/pallas/convres.py:409",
+    "convres_fwd_general": "dddpm_tpu/ops/pallas/convres.py:250",
+    "convres_bwd_general": "dddpm_tpu/ops/pallas/convres.py:409",
     "conv3x3": "dddpm_tpu/ops/pallas/conv3x3.py:54",
     "winograd": "dddpm_tpu/ops/pallas/winograd.py:49",
     "lin_ctx": "dddpm_tpu/ops/pallas/linear_attention.py:51",
@@ -210,6 +228,8 @@ SOURCES = {"attn_ctx": "dddpm_tpu_torch/csrc/attention_block.cu",
            "attn_1pass": "dddpm_tpu_torch/csrc/attention_block.cu",
            "convres_fwd": "dddpm_tpu_torch/csrc/convres_fwd.cu",
            "convres_bwd": "dddpm_tpu_torch/csrc/convres_bwd.cu",
+           "convres_fwd_general": "dddpm_tpu_torch/csrc/convres_general.cu",
+           "convres_bwd_general": "dddpm_tpu_torch/csrc/convres_general.cu",
            "conv3x3": "dddpm_tpu_torch/csrc/conv3x3.cu",
            "winograd": "dddpm_tpu_torch/csrc/winograd.cu",
            "lin_ctx": "dddpm_tpu_torch/csrc/linear_attention.cu",
@@ -435,9 +455,8 @@ def phase_attention_widths():
                         ab.one_pass_reference(x, g, b, w_qkv, w_out, b_out), dtype)
 
 
-def convres_inputs(h, w, dtype, gen, bsz=B):
+def convres_inputs(h, w, dtype, gen, bsz=B, c=64, cm=cr.MID_CHANNELS):
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    c, cm = 64, cr.MID_CHANNELS
     return (r(bsz, h, w, c).to(dtype),
             r(1, 1, c, cm) / c ** 0.5, 0.1 * r(cm) + 1.0,
             r(3, 3, cm, cm) / (9 * cm) ** 0.5, 0.1 * r(cm) + 1.0,
@@ -637,6 +656,7 @@ def _category(name: str) -> str:
                      ("out_kernel", "K1b attn_out"),
                      ("conv3x3_kernel", "K5 conv3x3"),
                      ("winograd_kernel", "K6 winograd"),
+                     ("convres_general", "K2/K3 general"),
                      ("convres_bwd", "K3 convres_bwd"), ("convres", "K2 convres"),
                      ("group_norm", "group norm"), ("gemm", "gemm/conv"),
                      ("conv", "gemm/conv"), ("xmma", "gemm/conv"),
@@ -1785,6 +1805,389 @@ def phase_int8(results):
     print(json.dumps({"int8_path": out}), flush=True)
 
 
+# phase 13: the widths past the tuned kernels'.  (cm, cio) of K2/K3's
+# width-general route (csrc/convres_general.cu) held against the plain
+# versions: the ConvResNet blocks of d_chans 128, 192 and 256, and cm 32
+# at a cio the tuned kernels do not take
+GENERAL_WIDTHS = [(64, 128), (96, 192), (128, 256), (32, 96)]
+D128 = dict(c=128, cm=64)      # a d_chans 128 ConvResNet block
+B_D128 = B_TRAIN               # the d_chans 128 train step's batch (32)
+REC_D128 = 4                   # its recon rows per micro-batch (D128_T)
+# t per micro-batch: 4 of 32 rows under t_rec_max = 100 in each
+D128_T = [[3, 40, 77, 95] + [100 + 29 * i for i in range(28)],
+          [57, 12, 5, 99] + [130 + 31 * i for i in range(28)]]
+# the int8 unet_chan 160 model's quantized shape classes: the x2 UNet's,
+# its channels x 160 / 128
+INT8_CLASSES_160 = [(hw, c * 160 // 128, n1, n2) for hw, c, n1, n2 in INT8_CLASSES]
+INT8_C160_STEPS = 3
+PER[("convres_fwd_general", "x2_sample_d128")] = (
+    f"x2 decode at B={B} with d_chans 128 (cm 64, cio 128): the upsampler's "
+    f"three fused blocks, each timed alone at its shape")
+PER[("convres_fwd_general", "x3_train_d128")] = (
+    f"x3 train step at d_chans 128, B={B_D128} x accumulation 2, "
+    f"{REC_D128} recon rows per micro-batch: 9 launches at the recon rows and "
+    f"the downsampler's 4 at B={B_D128} per micro-batch, each timed alone")
+PER[("convres_bwd_general", "x3_train_d128")] = (
+    f"x3 train step at d_chans 128, B={B_D128} x accumulation 2, "
+    f"{REC_D128} recon rows per micro-batch: 9 launches per micro-batch, "
+    f"each timed alone")
+PER[("int8_conv", "x2_sample_int8_c160")] = (
+    f"x2 chain step at B={B} of an int8 unet_chan 160 model: "
+    f"{INT8_LAUNCHES} launches (" + ", ".join(
+        f"{n1 + 2 * n2} operands at {hw}^2 c{c}" for hw, c, n1, n2 in INT8_CLASSES_160)
+    + "), on channels_last operands, each timed alone")
+
+
+def general_case(cm, c, dtype, gen, scale, bsz=2, hw=128):
+    """K2's general route against reference_impl at one width and
+    scaling (residual), timed eager beside the plain version and its
+    bound; (ms, plain_ms, bound_ms, bound_by, err, cost)."""
+    args = convres_inputs(hw, hw, dtype, gen, bsz=bsz, c=c, cm=cm)
+    run = lambda: cr.fused_convres_block(*args, residual=True, scale=scale)
+    plain = lambda: cr.reference_impl(*args, residual=True, scale=scale)
+    with torch.no_grad():
+        before = cr.LAUNCHES["convres_fwd_general"]
+        got = run()
+        assert cr.LAUNCHES["convres_fwd_general"] == before + 1
+        err = check_close(f"K2 general cm {cm} cio {c} B={bsz} {hw}^2 scale={scale} "
+                          f"{dtype}", got, plain(), dtype, quiet=True)
+        ms, plain_ms = cuda_ms(run, 3), cuda_ms(plain, 3)
+    cost = cr.cost(bsz, hw, hw, c, args[0].element_size(), scale, cm)
+    bnd, by = bound_ms(cost, dtype)
+    return ms, plain_ms, bnd, by, err, cost
+
+
+def general_bwd_case(cm, c, dtype, gen, bsz=2, hw=128):
+    """K3's general route against backward_reference (residual), timed
+    the same way; (ms, plain_ms, bound_ms, bound_by, err, cost)."""
+    args = convres_inputs(hw, hw, dtype, gen, bsz=bsz, c=c, cm=cm)
+    dy = torch.randn((bsz, hw, hw, c), generator=gen, device="cuda").to(dtype)
+    before = cr.LAUNCHES["convres_bwd_general"]
+    got = cr._bwd_kernel(*args, dy, True)
+    assert cr.LAUNCHES["convres_bwd_general"] == before + 1
+    want = cr.backward_reference(*args, dy, True)
+    err = max(check_close(f"K3 general cm {cm} cio {c} B={bsz} {hw}^2 {name} {dtype}",
+                          g, t, dtype, quiet=True)
+              for name, g, t in zip(GRAD_NAMES, got, want))
+    del got, want
+    run = lambda: cr._bwd_kernel(*args, dy, True)
+    ms = cuda_ms(run, 2)
+    plain_ms = cuda_ms(lambda: cr.backward_reference(*args, dy, True), 2)
+    cost = cr.cost_bwd(bsz, hw, hw, c, args[0].element_size(), cm)
+    bnd, by = bound_ms(cost, dtype)
+    return ms, plain_ms, bnd, by, err, cost
+
+
+def phase_general_kernels() -> dict:
+    """K2 and K3's general route against their plain versions at
+    GENERAL_WIDTHS, B = 2, 128^2 (K2: no scaling, 'up' and 'down'), bf16
+    and f32, each timed eager beside the plain version and its bound;
+    then two K3 launches at cm 128 give the same bits.  The route's
+    ptxas lines first (no spill allowed)."""
+    ptxas_check("convres_general", "conv_gemm")
+    assert any("conv_wgrad" in k["kernel"] for k in _build.ptxas_report("convres_general"))
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for cm, c in GENERAL_WIDTHS:
+            for scale in (None, "up", "down"):
+                ms, pms, bnd, by, err, _ = general_case(cm, c, dtype, gen, scale)
+                out[f"K2 cm{cm} cio{c} {scale} {dtype}"] = {
+                    "ms": ms, "plain_ms": pms, "bound_ms": bnd, "max_abs_err": err}
+                log(f"  K2 general cm {cm} cio {c} scale={scale} {dtype}: kernel "
+                    f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bnd:.4f} ms ({by}, "
+                    f"{bnd / ms:.1%}), max abs err {err:.3e}")
+            ms, pms, bnd, by, err, _ = general_bwd_case(cm, c, dtype, gen)
+            out[f"K3 cm{cm} cio{c} {dtype}"] = {
+                "ms": ms, "plain_ms": pms, "bound_ms": bnd, "max_abs_err": err}
+            log(f"  K3 general cm {cm} cio {c} {dtype}: kernel {ms:.3f} ms, plain "
+                f"{pms:.3f} ms, bound {bnd:.4f} ms ({by}, {bnd / ms:.1%}); 9 "
+                f"gradients ok, max abs err {err:.3e}")
+            torch.cuda.empty_cache()
+    args = convres_inputs(64, 64, torch.bfloat16, gen, bsz=2, c=256, cm=128)
+    dy = torch.randn((2, 64, 64, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    first, second = cr._bwd_kernel(*args, dy, True), cr._bwd_kernel(*args, dy, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    log("  K3 general at cm 128: two launches give the same bits")
+    return out
+
+
+def phase_d128_decode(results) -> dict:
+    """The x2 sampling path with d_chans 128 (build_model ->
+    generate_samples, the chain cut to 2 steps): the counters zeroed just
+    before and read just after, K2's general route launched at each of the
+    upsampler's three fused blocks (the tuned K2 never); K2 general timed
+    at those shapes (B = 8) for the kernels line."""
+    cfg = dict(X2_CONFIG, d_chans=128)
+    net, process, init_fn, _ = build_model(cfg)
+    init_fn(0)
+    cut = cfg["T"] - 2
+    generate_samples(process, seed=1, fid_samples=B, batch_size=B, early_stop=cut,
+                     progress=False)   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    samples, latents, timing = generate_samples(
+        process, seed=0, fid_samples=B, batch_size=B, early_stop=cut, progress=False)
+    torch.cuda.synchronize()
+    launched = counts()
+    log(f"  d_chans 128 x2 sampling (2 chain steps + decode, B={B}): launches "
+        f"{launched}, {timing['total_s']:.3f} s [{card_line()}]")
+    assert samples.shape == (1, B, 256, 256, 3) and np.isfinite(samples).all()
+    assert np.isfinite(latents).all()
+    assert launched["convres_fwd_general"] == len(CONVRES_DECODE), launched
+    assert launched["convres_fwd"] == launched["convres_bwd"] == 0, launched
+    del net, process
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for h, w, scale in sorted(set(CONVRES_DECODE)):
+        n = CONVRES_DECODE.count((h, w, scale))
+        ms, pms, bnd, by, err, cost = general_case(
+            D128["cm"], D128["c"], torch.bfloat16, gen, scale, bsz=B, hw=h)
+        log(f"    K2 general {h}^2 scale={scale} B={B} bf16 (x{n} a decode): "
+            f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bnd:.4f} ms ({by})")
+        accumulate(results, "convres_fwd_general", "x2_sample_d128", n, ms, pms,
+                   bnd, cost, err)
+    r = results[("convres_fwd_general", "x2_sample_d128")]
+    r["launches"] = launched["convres_fwd_general"]
+    log(f"  K2 general per d_chans 128 x2 decode (bf16): kernel {r['ms']:.3f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
+    return {"launches": launched["convres_fwd_general"], "sampling_s": timing["total_s"],
+            "k2_general_ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"]}
+
+
+def phase_d128_train(results) -> dict:
+    """One x3 train step at d_chans 128 (B = 32 x accumulation 2, bf16, 4
+    recon rows per micro-batch, given t and eps) with remat off and then
+    on, from the same weights, batch, t and eps: the counters zeroed just
+    before and read just after each (K2's general route 13 launches and
+    K3's 9 per micro-batch, the tuned kernels none), the losses equal
+    within 1e-3 relative (the same kernels on the same inputs; remat only
+    recomputes the UNet's ResnetBlocks in the backward, replaying the
+    dropout masks), and each run's peak device memory, of the step and
+    of the UNet's own forward and backward at the step's latent batch
+    (what remat acts on).  Then K2 and K3's general route timed at the
+    step's shapes for the kernels line."""
+    out, metrics, state0 = {}, {}, None
+    gen = torch.Generator().manual_seed(16)
+    batch = (torch.rand((2, B_D128, 256, 256, 3), generator=gen) * 2 - 1).cuda()
+    eps = torch.randn((2, B_D128, 32, 32, 8), generator=gen).cuda()
+    t = torch.tensor(D128_T).cuda()
+    assert all(sum(v < X3_CONFIG["t_rec_max"] for v in row) == REC_D128 for row in D128_T)
+    for remat in (False, True):
+        cfg = dict(X3_CONFIG, d_chans=128, batch_size=B_D128, remat=remat)
+        net, proc, init_fn, _ = build_model(cfg)
+        init_fn(0)
+        if state0 is None:
+            state0 = {k: v.clone() for k, v in net.state_dict().items()}
+        net.load_state_dict(state0)
+        net.train()
+        state = create_train_state(net, create_optimizer(net, cfg["lr"]), seed=3)
+        step = make_train_step(proc, 2, cfg["ema_decay"])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        m = step(state, batch, t=t, eps=eps)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated()
+        metrics[remat] = {k: float(v) for k, v in m.items()}
+        log(f"  d_chans 128 x3 train step, remat {remat}: launches {launched}, "
+            f"{wall:.2f} s (first step, set-up included), peak device memory "
+            f"{peak / 2 ** 30:.3f} GiB, metrics {metrics[remat]} [{card_line()}]")
+        want = {"convres_fwd_general": 2 * FWD_PER_MB,
+                "convres_bwd_general": 2 * BWD_PER_MB, "attn_ctx": 2, "attn_out": 2}
+        assert {k: launched[k] for k in want} == want, (launched, want)
+        assert not any(v for k, v in launched.items() if k not in want), launched
+        assert all(np.isfinite(v) for v in metrics[remat].values())
+        # the UNet alone, forward and backward at the step's latent batch
+        z = torch.rand((B_D128, 8, 32, 32), generator=gen).cuda() * 2 - 1
+        tt = t[0]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.manual_seed(0)
+        net.unet(z, tt).float().square().mean().backward()
+        torch.cuda.synchronize()
+        unet_peak = torch.cuda.max_memory_allocated() - base
+        log(f"    the UNet's forward and backward alone (B={B_D128}, 32^2 latent), "
+            f"remat {remat}: peak {unet_peak / 2 ** 30:.3f} GiB above the "
+            f"{base / 2 ** 30:.3f} GiB held")
+        out[f"remat_{remat}"] = {"peak_bytes": peak, "metrics": metrics[remat],
+                                 "wall_s": wall, "unet_peak_bytes": unet_peak}
+        del z
+        if not remat:
+            launches_d128 = {n: launched[n] for n in want}
+        del net, proc, state, step
+        torch.cuda.empty_cache()
+    rel = {k: abs(metrics[True][k] - v) / max(abs(v), 1e-12)
+           for k, v in metrics[False].items()}
+    log(f"  remat on against off: relative differences {rel}; peak memory of "
+        f"the step {out['remat_True']['peak_bytes'] / 2 ** 30:.3f} GiB against "
+        f"{out['remat_False']['peak_bytes'] / 2 ** 30:.3f} GiB, of the UNet's "
+        f"forward and backward {out['remat_True']['unet_peak_bytes'] / 2 ** 30:.3f} "
+        f"GiB against {out['remat_False']['unet_peak_bytes'] / 2 ** 30:.3f} GiB")
+    assert all(v <= 1e-3 for k, v in rel.items() if k != "grad_norm"), rel
+    assert rel["grad_norm"] <= 1e-2, rel
+    assert (out["remat_True"]["unet_peak_bytes"]
+            < out["remat_False"]["unet_peak_bytes"]), out
+    out["relative_differences"] = rel
+    # the kernels line: K2 at the 9 recon-row blocks and the downsampler's
+    # 4 at the full batch, K3 at the 9, per micro-batch, two micro-batches
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for bsz, blocks in ((REC_D128, TRAIN_BLOCKS), (B_D128, TRAIN_BLOCKS[:3])):
+        for (h, w, scale), n in blocks:
+            n = 2 if (bsz == B_D128 and scale is None) else n
+            ms, pms, bnd, by, err, cost = general_case(
+                D128["cm"], D128["c"], torch.bfloat16, gen, scale, bsz=bsz, hw=h)
+            log(f"    K2 general B={bsz} {h}^2 scale={scale} bf16: kernel {ms:.3f} ms, "
+                f"plain {pms:.3f} ms, bound {bnd:.4f} ms ({by}), {2 * n} launches a "
+                f"train step")
+            accumulate(results, "convres_fwd_general", "x3_train_d128", 2 * n, ms,
+                       pms, bnd, cost, err)
+    for (h, w, scale), n in TRAIN_BLOCKS:
+        ms, pms, bnd, by, err, cost = general_bwd_case(
+            D128["cm"], D128["c"], torch.bfloat16, gen, bsz=REC_D128, hw=h)
+        log(f"    K3 general B={REC_D128} {h}^2 ({scale}) bf16: kernel {ms:.3f} ms, "
+            f"plain {pms:.3f} ms, bound {bnd:.4f} ms ({by}), {2 * n} launches a "
+            f"train step")
+        accumulate(results, "convres_bwd_general", "x3_train_d128", 2 * n, ms, pms,
+                   bnd, cost, err)
+    for name in ("convres_fwd_general", "convres_bwd_general"):
+        r = results[(name, "x3_train_d128")]
+        r["launches"] = launches_d128[name]
+        log(f"  {name} per d_chans 128 x3 train step (bf16): kernel {r['ms']:.2f} ms, "
+            f"plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.3f} ms")
+        out[name] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "launches")}
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_int8_c160(results) -> dict:
+    """Q1 at the widths past 128 that JAX's gate quantizes: against its
+    plain version, bit for bit, at C = 144 and 160 (B = 8, 32^2 and 13 x
+    21), NCHW and channels_last, with and without the skip operand; then
+    an int8 unet_chan 160 model (noise calibration at batch 4) runs
+    INT8_C160_STEPS chain steps at B with the counters zeroed just before
+    and read just after: Q1 launched at every quantized conv; Q1 timed at
+    that model's shape classes for the kernels line."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    dt, out = torch.bfloat16, {}
+    for c in (144, 160):
+        for hw in (32, (13, 21)):
+            h, w = (hw, hw) if isinstance(hw, int) else hw
+            for skip in (False, True):
+                args, kw, _ = int8_inputs(32, c, dt, gen, B, skip)
+                if (h, w) != (32, 32):
+                    args = (args[0][:, :, :h, :w].contiguous(
+                        memory_format=torch.channels_last),) + args[1:]
+                    if skip:
+                        kw["skip"] = kw["skip"][:, :, :h, :w].contiguous(
+                            memory_format=torch.channels_last)
+                want = qt.plain(*args, **kw)
+                for name, fmt in INT8_LAYOUTS:
+                    a_, k_ = _as_layout(args, kw, fmt)
+                    got = qt.int8_conv_q(*a_, **k_)
+                    assert torch.equal(got, want), (c, h, w, skip, name)
+                log(f"  Q1 C={c} {h}x{w} B={B} skip={skip}: equal to its plain "
+                    f"version, NCHW and channels_last")
+    cfg = dict(X2_CONFIG, unet_chan=160, conv_quant="int8")
+    net, proc, init_fn, _ = build_model(cfg)
+    init_fn(0)
+    calibrate_conv_quant(cfg, net, proc, batch_size=4, n_points=4, mode="noise")
+    sites = sum(1 for m in net.modules() if isinstance(m, Conv2d) and m.quant_sites)
+    z = proc.init_latent(B, seed=5)
+    ts = list(range(900, 900 - INT8_C160_STEPS, -1))
+    proc.p_sample_chain(z, ts[:1], seed=5)
+    torch.cuda.synchronize()
+    reset_counts()
+    z_out = proc.p_sample_chain(z, ts, seed=5)
+    torch.cuda.synchronize()
+    launched = counts()
+    log(f"  int8 unet_chan 160: {sites} quantized convs, {INT8_C160_STEPS} chain "
+        f"steps at B={B}: launches {launched}")
+    assert sites == INT8_LAUNCHES, sites
+    assert launched["int8_conv"] == INT8_LAUNCHES * INT8_C160_STEPS, launched
+    assert torch.isfinite(z_out).all()
+    del net, proc, z, z_out
+    torch.cuda.empty_cache()
+    for hw, c, n1, n2 in INT8_CLASSES_160:
+        for skip, n in ((False, n1), (True, n2)):
+            if not n:
+                continue
+            args, kw, _ = int8_inputs(hw, c, dt, gen, B, skip)
+            want = qt.plain(*args, **kw)
+            got = qt.int8_conv_q(*args, **kw)
+            assert torch.equal(got, want), (hw, c, skip)
+            ms = cuda_ms(lambda: qt.int8_conv_q(*args, **kw), 20, reps=3)
+            pms = cuda_ms(lambda: qt.plain(*args, **kw), 2)
+            cost = qt.cost(B, hw, hw, c, c, 2, operands=2 if skip else 1)
+            bnd, by = bound_ms(cost, torch.int8)
+            log(f"    Q1 {hw}^2 c{c}{' +skip' if skip else ''} B={B}: {ms * 1e3:.1f} "
+                f"us (x{n} an eval), plain {pms * 1e3:.1f} us, bound {bnd * 1e3:.1f} "
+                f"us ({by}, {bnd / ms:.1%})")
+            accumulate(results, "int8_conv", "x2_sample_int8_c160", n, ms, pms, bnd,
+                       cost, 0.0)
+            del args, kw, want, got
+    r = results[("int8_conv", "x2_sample_int8_c160")]
+    r["launches"] = launched["int8_conv"]
+    r["dtype"] = torch.int8
+    out.update(q1_ms_per_eval=r["ms"], bound_ms=r["bound_ms"], sites=sites,
+               launches=launched["int8_conv"])
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ragged_offpath() -> dict:
+    """K4, K5 and K6 at one ragged width each (the wrappers pad), against
+    their plain versions, bf16, B = 2, each timed beside the plain
+    version: K5 at 40 -> 72 channels with the gn-fold + post_bias
+    prologue, K6 at 24 -> 40 with mish, K4 at three heads of 20."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    dt, out = torch.bfloat16, {}
+    x, w, b = r(2, 64, 64, 40).to(dt), r(3, 3, 40, 72) / 19, r(72)
+    kw = {"scale": 1 + 0.1 * r(2, 40), "shift": 0.2 * r(2, 40),
+          "post_bias": (0.1 * r(2, 40)).to(dt)}
+    cases = {
+        "K5 conv3x3 40->72": (lambda: c3.conv3x3_fused(x, w, b, **kw),
+                              lambda: c3.plain(x, w, b, **kw), c3.LAUNCHES),
+        "K6 winograd 24->40": (
+            lambda: wg.conv3x3_winograd(x[..., :24].contiguous(), w[:, :, :24, :40],
+                                        b[:40], apply_mish=True),
+            lambda: wg.plain(x[..., :24].contiguous(), w[:, :, :24, :40], b[:40], True),
+            wg.LAUNCHES)}
+    q, k, v = (r(2, 1024, 60).to(dt) for _ in range(3))
+    cases["K4 linear attention 3 heads of 20"] = (
+        lambda: la.linear_attention(q, k, v, 20), lambda: la.plain(q, k, v, 20),
+        la.LAUNCHES)
+    for name, (kern, plain, counter) in cases.items():
+        before = sum(counter.values())
+        got = kern()
+        assert sum(counter.values()) > before, name
+        err = check_close(name, got, plain(), dt)
+        ms, pms = cuda_ms(kern, 10), cuda_ms(plain, 10)
+        out[name] = {"ms": ms, "plain_ms": pms, "max_abs_err": err}
+        log(f"    {name}: kernel {ms:.4f} ms (the wrapper's padding included), "
+            f"plain {pms:.4f} ms")
+    return out
+
+
+def phase_widths(results):
+    """Phase 13: the widths past the tuned kernels' (see the module
+    docstring)."""
+    log("phase 13: widths")
+    out = {"card": card_line(), "general_kernels": phase_general_kernels(),
+           "d128_decode": phase_d128_decode(results),
+           "d128_train": phase_d128_train(results),
+           "int8_c160": phase_int8_c160(results),
+           "ragged_offpath": phase_ragged_offpath()}
+    print(json.dumps({"widths_path": out}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1825,6 +2228,7 @@ def main() -> int:
     phase_train_against_cpu()
     phase_eval(ckpt_x3, seed_x3)
     phase_int8(results)
+    phase_widths(results)
     phase_probes(results)
     log(f"chip_smoke: {time.time() - t0:.1f} s after the build started")
 

@@ -2,9 +2,10 @@
 
 The reference's config-dict contract and flags (-m/-d/-e/-bs/-is/-mute/
 -downsample) plus the JAX package's --data-root, --T, --compute-dtype,
---seed, --grad-accum and --prefetch.  Its TPU-only flags (--mesh-shape,
---fsdp, --use-pallas, --remat) have no counterpart; --device picks the
-card (the default) or 'cpu' for the plain PyTorch path.  The JAX
+--seed, --grad-accum, --prefetch and --remat (the UNet's ResnetBlocks
+rematerialized under grad, models/unet.py).  Its TPU-only flags
+(--mesh-shape, --fsdp, --use-pallas) have no counterpart; --device picks
+the card (the default) or 'cpu' for the plain PyTorch path.  The JAX
 package's two kernel selectors are config keys here as there:
 use_pallas_attention ('auto' | True | False, pinned by build_model) and
 use_pallas_resample (True | False); False takes the plain path on the
@@ -65,6 +66,7 @@ CONFIG_PORT: Dict = {
     # the resamplers' fused ConvResBlock kernels (K2/K3)
     "use_pallas_resample": True,
     "prefetch": 2,                # host batch-prep prefetch depth (0 = off)
+    "remat": False,               # rematerialize UNet ResnetBlocks under grad
     # the AE dDDPM variant's recon branch on the t < t_rec_max rows only
     # (models/dddpm.py:DownsampleDiffusionAutoencoder)
     "recon_compact": True,
@@ -125,6 +127,9 @@ def get_args(data_names: List[str] = DATASETS,
                         help="micro-steps per optimizer step")
     parser.add_argument("--prefetch", default=2, type=int,
                         help="background host batch-prep depth (0 disables)")
+    parser.add_argument("--remat", action="store_true",
+                        help="rematerialize UNet ResnetBlocks under grad "
+                             "(activation memory for recompute)")
     parser.add_argument("--device", default=None, type=str,
                         help="torch device (default: the CUDA card; 'cpu' "
                              "runs the plain PyTorch path)")

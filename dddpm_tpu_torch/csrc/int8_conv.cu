@@ -72,11 +72,20 @@
 // Not done: y staged in shared memory and stored by TMA while the next
 // tile's products run; clusters sharing a weight stage at C = 256.
 //
-// The weights come packed (ops/quant.py:prepare_weight): s8 (9, Cin /
-// 32, Npad / 8, 2, 8, 16), Npad = Cout rounded up to 128 (zero rows):
-// per tap and 32-channel slab, the 8-row x 16-byte core matrices of the
-// wgmma B operand, so a tile's N rows of one tap and slab are one
-// contiguous run of N x 32 bytes.
+// The weights come packed (ops/quant.py:prepare_weight): s8 (9, Kpad /
+// 32, Npad / 8, 2, 8, 16), Kpad = Cin and Npad = Cout rounded up to 32
+// and 128 (zero rows and columns): per tap and 32-channel slab, the
+// 8-row x 16-byte core matrices of the wgmma B operand, so a tile's N
+// rows of one tap and slab are one contiguous run of N x 32 bytes.
+//
+// Any width: Cin and Cout need not be multiples of anything.  The last
+// 32-channel stage's box reaches past Cin, where the TMA fills zeros
+// (within the tensor map's bounds, in either layout), which quantize to
+// 0 and meet the packed weights' zero columns; y's stores, and the reads
+// of ws and the bias, are masked past Cout.  An NHWC operand's pixel
+// pitch, Cin x its element size, must be a multiple of 16 bytes (the
+// TMA's stride rule); ops/quant.py:_readable pads the channels of a copy
+// where it is not.
 //
 // C interface: plain C entry, loaded with ctypes.  It launches on the
 // stream it is given, allocates nothing, does not synchronise and
@@ -277,7 +286,7 @@ int8_conv_kernel(const __grid_constant__ Args args,
   unsigned char* raws = dyn + ((128 - (smem_addr(dyn) & 127)) & 127);
   unsigned char* smem = raws + 2 * C::RB * C::RAW;   // the ring
   unsigned char* wres = smem + C::STAGES * C::STAGE;  // RES: the weights
-  const int nk = args.Cin / KC;
+  const int nk = (args.Cin + KC - 1) / KC;
   const int ntiles = args.B * ((args.H + TH - 1) / TH) *
                      ((args.W + TW - 1) / TW) * args.ncol;
 
@@ -330,7 +339,7 @@ int8_conv_kernel(const __grid_constant__ Args args,
     };
     // resident weights: all of them, once
     if (RES && pwg == 0 && tid == 0) {
-      const unsigned bytes = SKIP & 8 ? 0u : 9u * args.Cin * args.Npad;
+      const unsigned bytes = SKIP & 8 ? 0u : 9u * nk * KC * args.Npad;
       mbar_arrive_expect_tx(&wbar, bytes);
       if (bytes) bulk_g2s(wres, args.op[0].w, bytes, &wbar);
     }
@@ -529,7 +538,7 @@ cudaError_t dispatch(const Args& a, const CUtensorMap* maps, cudaStream_t stream
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if constexpr (NOPS == 1 && sizeof(T) == 2) {
     // C -> C at 128 channels or fewer: the weights stay in shared memory
-    if (a.Npad == 128 && 9 * a.Cin * a.Npad <= RES_BYTES)
+    if (a.Npad == 128 && 9 * ((a.Cin + KC - 1) / KC * KC) * a.Npad <= RES_BYTES)
       return launch<T, 128, 1, true>(a, maps, sms, stream);
     // all of Cout = 256 in one tile unless that leaves SMs without a tile
     const long bands = (long)a.B * ((a.H + TH - 1) / TH) * ((a.W + TW - 1) / TW);
@@ -550,9 +559,9 @@ extern "C" int int8_conv(const void* x, const void* w, const void* ws,
                          int x_nchw, int skip_nchw, void* stream) {
   const int es = dtype == 1 ? 2 : 4;
   const bool two = skip != nullptr;
-  if (B < 1 || H < 1 || W < 1 || Cin < KC || Cin % KC || Cout < 64 ||
-      Cout % 64 || (dtype != 0 && dtype != 1) || (x_nchw | skip_nchw) & ~1 ||
-      ((x_nchw || (two && skip_nchw)) && W * es % 16))
+  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || (dtype != 0 && dtype != 1) ||
+      (x_nchw | skip_nchw) & ~1 || ((x_nchw || (two && skip_nchw)) && W * es % 16) ||
+      ((!x_nchw || (two && !skip_nchw)) && Cin * es % 16))
     return (int)cudaErrorInvalidValue;
   // the TMA's view of each operand: NCHW boxes of 32 (bf16) or 24 (f32)
   // columns x 10 rows x 32 channels, NHWC boxes of 32 channels x 18

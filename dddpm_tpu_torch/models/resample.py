@@ -15,12 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dddpm_tpu_torch.models.blocks import Conv2d, ConvTranspose4x4
-from dddpm_tpu_torch.ops.convres import (
-    IO_CHANNELS,
-    MID_CHANNELS,
-    fused_convres_block,
-    scale_ref,
-)
+from dddpm_tpu_torch.ops.convres import fused_convres_block, scale_ref
 from dddpm_tpu_torch.ops.math import mish
 
 # The JAX package's gate for its fused kernel: at least 128^2 pixels, and
@@ -113,8 +108,8 @@ class ConvResBlock(nn.Module):
         return "down" if self.downsample else "up" if self.upsample else None
 
     def fused_shape_ok(self, hh: int, ww: int) -> bool:
-        """The JAX package's gate (use_pallas and the shapes), plus the
-        channel widths the kernel takes (cm 32, cio 32/64/128)."""
+        """The JAX package's gate (use_pallas and the shapes), as it is:
+        the kernels take every width it admits (ops/convres.py)."""
         th = min(FUSED_ROW_TILE, hh)
         return (self.use_pallas
                 and self.in_channels == self.out_channels
@@ -123,9 +118,7 @@ class ConvResBlock(nn.Module):
                 and ww % 4 == 0
                 and hh % th == 0
                 and hh * ww >= FUSED_MIN_PIXELS
-                and not (self.downsample and (ww % 8 or th % 2))
-                and self.dim == MID_CHANNELS
-                and self.in_channels in IO_CHANNELS)
+                and not (self.downsample and (ww % 8 or th % 2)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         whole_block = not (self.training and self.drop.p > 0)

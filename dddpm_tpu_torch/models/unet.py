@@ -8,6 +8,13 @@ resolution, with the JAX package's quirks kept:
 - every expansive level ends in an Upsample;
 - only the contracting path's ResnetBlocks get dropout.
 
+With `remat` (the config key of that name) every ResnetBlock runs
+through torch.utils.checkpoint when grad is enabled: its activations are
+recomputed in the backward instead of kept, as the JAX module wraps its
+ResnetBlocks in nn.remat.  The parameters, their names, the outputs and
+the gradients are those of the plain UNet; the recompute replays the
+dropout masks (the RNG state is preserved).
+
 Blocks are held in flat ModuleLists in the order the JAX module creates
 them (ResnetBlock_i <-> resnets[i], PreNormLinearAttention_i <->
 attns[i], ...), which is what convert.py relies on.
@@ -18,6 +25,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dddpm_tpu_torch.models.blocks import (
     Block,
@@ -52,9 +60,11 @@ class Unet(nn.Module):
     def __init__(self, dim: int = 128, in_channels: int = 3,
                  dim_mults: Sequence[int] = (1, 2, 2, 2),
                  dropout: float = 0.0, compute_dtype=torch.float32,
-                 use_pallas: bool = True, quant_conv: Optional[str] = None):
+                 use_pallas: bool = True, quant_conv: Optional[str] = None,
+                 remat: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.remat = remat
         dims = [in_channels] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         self.levels = len(in_out)
@@ -105,7 +115,15 @@ class Unet(nn.Module):
                    dim_mults=tuple(config["unet_dims"]),
                    dropout=config["unet_dropout"],
                    compute_dtype=compute_dtype_of(config),
-                   use_pallas=bool(use_pallas), quant_conv=quant)
+                   use_pallas=bool(use_pallas), quant_conv=quant,
+                   remat=bool(config.get("remat", False)))
+
+    def _resnet(self, block: ResnetBlock, x, t_emb, skip=None):
+        """block(x, t_emb, skip), rematerialized under grad with remat."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, t_emb, skip, use_reentrant=False,
+                              preserve_rng_state=True)
+        return block(x, t_emb, skip)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W) in [-1, 1]; t: (B,) integer timesteps."""
@@ -117,20 +135,20 @@ class Unet(nn.Module):
 
         skips = []
         for ind in range(self.levels):
-            x = next(resnets)(x, t_emb)
-            x = next(resnets)(x, t_emb)
+            x = self._resnet(next(resnets), x, t_emb)
+            x = self._resnet(next(resnets), x, t_emb)
             x = next(attns)(x)
             skips.append(x)
             if ind < self.levels - 1:
                 x = next(downs)(x)
 
-        x = next(resnets)(x, t_emb)
+        x = self._resnet(next(resnets), x, t_emb)
         x = next(attns)(x)
-        x = next(resnets)(x, t_emb)
+        x = self._resnet(next(resnets), x, t_emb)
 
         for _ in range(self.levels - 1):
-            x = next(resnets)(x, t_emb, skip=skips.pop())
-            x = next(resnets)(x, t_emb)
+            x = self._resnet(next(resnets), x, t_emb, skip=skips.pop())
+            x = self._resnet(next(resnets), x, t_emb)
             x = next(attns)(x)
             x = next(ups)(x)
 

@@ -128,6 +128,12 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def aligned(t):
+    """t, or a copy of it where its data is not 16-byte aligned (the
+    kernels load 16 bytes at a time; a view with an offset may not be)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def stream(t) -> ctypes.c_void_p:
     """PyTorch's current CUDA stream on t's device, as a C argument."""
     import torch

@@ -15,7 +15,10 @@ padding is zero in operand space, after the prologue.  NHWC activations
 and HWIO weights, the JAX package's layout.
 
 On a CUDA tensor `conv3x3_fused` launches the hand-written kernel
-(csrc/conv3x3.cu, K5) or raises; on a CPU tensor `plain` runs.
+(csrc/conv3x3.cu, K5) or raises; on a CPU tensor `plain` runs.  K5
+takes Cin % 32 == 0 and Cout % 64 == 0; at any other width the wrapper
+zero-pads the channels (ops/math.py:pad_conv_channels, exact) and slices
+the padded output channels off.
 """
 from __future__ import annotations
 
@@ -25,12 +28,13 @@ import torch
 import torch.nn.functional as F
 
 from dddpm_tpu_torch.ops import _build
-from dddpm_tpu_torch.ops.math import mish
+from dddpm_tpu_torch.ops.math import mish, pad_conv_channels
 
 GROUPS = 8
 GN_EPS = 1e-5
 CIN_STEP = 32     # the C entry of csrc/conv3x3.cu takes Cin % 32 == 0
-COUT_STEP = 64    # and Cout % 64 == 0 (its blocks of 128 mask the rest)
+COUT_STEP = 64    # and Cout % 64 == 0 (its blocks of 128 mask the rest);
+                  # the wrapper pads other widths
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the C entry; chip_smoke.py reads it
@@ -80,41 +84,39 @@ def _lib():
     return lib
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t, or a copy of it where its data is not 16-byte aligned (the
-    kernel loads 16 bytes at a time; a view with an offset may not be)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _kernel(x, w, b, apply_mish, scale, shift, post_bias):
-    """K5 on a CUDA tensor; raises on what it does not take."""
+    """K5 on a CUDA tensor, its channels zero-padded to CIN_STEP and
+    COUT_STEP where they are not multiples of them; raises on what it
+    does not take."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC tensor")
     bsz, h, wd, cin = x.shape
     cout = w.shape[-1]
-    if cin % CIN_STEP or cout % COUT_STEP:
-        raise ValueError(f"kernel takes Cin % {CIN_STEP} == 0 and Cout % "
-                         f"{COUT_STEP} == 0, got {cin} -> {cout}")
     if tuple(w.shape) != (3, 3, cin, cout) or w.device != x.device:
         raise ValueError(f"w must be (3, 3, {cin}, Cout) on {x.device}")
     if tuple(b.shape) != (cout,) or b.device != x.device:
         raise ValueError(f"b must be ({cout},) on {x.device}")
+    for t in (scale, shift, post_bias):
+        if t is not None and (t.numel() != bsz * cin or t.device != x.device):
+            raise ValueError(f"scale, shift, post_bias must hold ({bsz}, "
+                             f"{cin}) values on {x.device}")
+    if cin % CIN_STEP or cout % COUT_STEP:
+        x, w, b, (scale, shift, post_bias) = pad_conv_channels(
+            x, w, b, CIN_STEP, COUT_STEP, (scale, shift, post_bias))
+        y = _kernel(x, w, b, apply_mish, scale, shift, post_bias)
+        return y[..., :cout].contiguous()
     # mode (csrc/conv3x3.cu): 0 identity, 1 mish, 2 scale/shift, 3 with
     # post_bias; the per-(batch, channel) arrays go in f32, unused as null
     extra, mode = [], int(apply_mish)
     if scale is not None:
         extra = [t for t in (scale, shift, post_bias) if t is not None]
-        for t in extra:
-            if t.numel() != bsz * cin or t.device != x.device:
-                raise ValueError(f"scale, shift, post_bias must hold ({bsz}, "
-                                 f"{cin}) values on {x.device}")
-        extra = [_aligned(t.float().reshape(bsz, cin).contiguous())
+        extra = [_build.aligned(t.float().reshape(bsz, cin).contiguous())
                  for t in extra]
         mode = len(extra)
     extra += [None] * (3 - len(extra))
-    x, wk = _aligned(x), _aligned(w.to(x.dtype).contiguous())
+    x, wk = _build.aligned(x), _build.aligned(w.to(x.dtype).contiguous())
     bias = b.float().contiguous()
     y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
     lib = _lib()

@@ -8,7 +8,11 @@ JAX package's layout.
 
 On a CUDA tensor the forward is one hand-written kernel
 (csrc/convres_fwd.cu, K2) and the backward another (csrc/convres_bwd.cu,
-K3); on a CPU tensor the plain versions run (`reference_impl`, and
+K3) at the widths they are tuned for (cm 32, cio 32 / 64 / 128), and
+the width-general route (csrc/convres_general.cu: the same function as a
+chain of hand-written implicit-GEMM launches) at every other cm and cio
+that are multiples of 32, the widths the JAX gate admits; on a CPU
+tensor the plain versions run (`reference_impl`, and
 `backward_reference` under autograd).  As in the JAX custom VJP, the
 forward saves only x and the weights: the backward recomputes the
 intermediates, and the scaling's VJP (`unscale_grad`) runs in plain
@@ -25,13 +29,23 @@ import torch.nn.functional as F
 from dddpm_tpu_torch.ops import _build
 from dddpm_tpu_torch.ops.math import mish
 
-MID_CHANNELS = 32          # CM in csrc/convres_fwd.cu
+# the widths the tuned kernels take (CM in csrc/convres_sm90.cuh, their
+# CIO instantiations); csrc/convres_general.cu takes every other width
+MID_CHANNELS = 32
 IO_CHANNELS = (32, 64, 128)
+CHANNEL_STEP = 32          # every route: cm and cio multiples of 32
 _SCALES = {None: 0, "up": 1, "down": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of each C entry; chip_smoke.py reads these
-LAUNCHES = {"convres_fwd": 0, "convres_bwd": 0}
+LAUNCHES = {"convres_fwd": 0, "convres_bwd": 0, "convres_fwd_general": 0,
+            "convres_bwd_general": 0}
+
+
+def tuned(c: int, cm: int) -> bool:
+    """Whether the tuned kernels (convres_fwd.cu, convres_bwd.cu) take
+    cio c and cm mid channels; else the width-general route runs."""
+    return cm == MID_CHANNELS and c in IO_CHANNELS
 
 
 def scale_ref(out: torch.Tensor, scale: Optional[str]) -> torch.Tensor:
@@ -116,22 +130,44 @@ def library_bwd(defines=()):
     return lib
 
 
+def library_general():
+    """csrc/convres_general.cu's library, its C entries typed."""
+    lib = _build.load("convres_general")
+    if lib.convres_fwd_general.argtypes is None:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.convres_fwd_general.argtypes = [vp] * 11 + [i] * 8 + [vp]
+        lib.convres_fwd_general.restype = i
+        lib.convres_bwd_general.argtypes = [vp] * 14 + [i] * 7 + [vp]
+        lib.convres_bwd_general.restype = i
+        lib.convres_bwd_general_part.argtypes = [i] * 5
+        lib.convres_bwd_general_part.restype = ll
+        lib.convres_general_samples.argtypes = [i] * 3
+        lib.convres_general_samples.restype = i
+    return lib
+
+
 def _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4,
                  forward: bool = False) -> None:
     """Raises on what the kernels do not take; `forward`, also on what
-    K2 alone does not take (a bfloat16 x that is not 16-byte aligned:
-    its tensor-core path loads and stores 16-byte pieces)."""
+    K2 does not take (a bfloat16 x that is not 16-byte aligned: its
+    tensor-core path loads and stores 16-byte pieces; at the general
+    route's widths any x that is not, in either dtype)."""
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC tensor")
-    c, cm = x.shape[-1], MID_CHANNELS
-    if c not in IO_CHANNELS:
-        raise ValueError(f"kernel takes {IO_CHANNELS} channels, got {c}")
-    if forward and x.dtype == torch.bfloat16 and x.data_ptr() % 16:
-        raise ValueError("the forward kernel needs a 16-byte aligned bfloat16 x")
+    c, cm = x.shape[-1], w1.shape[-1]
+    if c % CHANNEL_STEP or cm % CHANNEL_STEP or not c or not cm:
+        raise ValueError(f"kernel takes cio and cm that are multiples of "
+                         f"{CHANNEL_STEP}, got cio {c}, cm {cm}")
+    if forward and x.data_ptr() % 16:
+        if x.dtype == torch.bfloat16:
+            raise ValueError("the forward kernel needs a 16-byte aligned "
+                             "bfloat16 x")
+        if not tuned(c, cm):
+            raise ValueError("the general route needs a 16-byte aligned x")
     shapes = {"w1": (w1, (1, 1, c, cm)), "w2": (w2, (3, 3, cm, cm)),
               "w3": (w3, (3, 3, cm, cm)), "w4": (w4, (1, 1, cm, c)),
               "b1": (b1, (cm,)), "b2": (b2, (cm,)), "b3": (b3, (cm,)),
@@ -143,7 +179,7 @@ def _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4,
 
 
 def _kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, residual, scale):
-    """K2: the forward kernel."""
+    """K2: the forward kernel (the general route at untuned widths)."""
     _check_block(x, w1, b1, w2, b2, w3, b3, w4, b4, forward=True)
     bsz, h, w, c = x.shape
     if scale not in _SCALES:
@@ -152,9 +188,22 @@ def _kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, residual, scale):
         raise ValueError("scale='down' needs even H and W")
     out_hw = {None: (h, w), "up": (2 * h, 2 * w), "down": (h // 2, w // 2)}[scale]
     y = torch.empty((bsz, *out_hw, c), dtype=x.dtype, device=x.device)
-    ws = [t.to(x.dtype).contiguous() for t in (w1, w2, w3, w4)]
-    bs = [t.float().contiguous() for t in (b1, b2, b3, b4)]
+    ws = [_build.aligned(t.to(x.dtype).contiguous()) for t in (w1, w2, w3, w4)]
+    bs = [_build.aligned(t.float().contiguous()) for t in (b1, b2, b3, b4)]
     p = _build.ptr
+    cm = w1.shape[-1]
+    if not tuned(c, cm):
+        lib = library_general()
+        bc = lib.convres_general_samples(bsz, h, w)   # samples a chunk
+        scratch = torch.empty((2 * bc * h * w * cm,), dtype=x.dtype,
+                              device=x.device)
+        LAUNCHES["convres_fwd_general"] += 1
+        _build.check(lib.convres_fwd_general(
+            p(x), p(ws[0]), p(bs[0]), p(ws[1]), p(bs[1]), p(ws[2]), p(bs[2]),
+            p(ws[3]), p(bs[3]), p(y), p(scratch), bsz, h, w, c, cm,
+            int(residual), _SCALES[scale], _DTYPES[x.dtype],
+            _build.stream(x)), "convres_fwd_general")
+        return y
     lib = library()
     LAUNCHES["convres_fwd"] += 1
     status = lib.convres_fwd(
@@ -195,7 +244,9 @@ def _bwd_kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, dy, residual) -> tuple:
         raise ValueError("the backward kernel needs 16-byte aligned bfloat16 "
                          "x and dy")
     bsz, h, w, c = x.shape
-    cm = MID_CHANNELS
+    cm = w1.shape[-1]
+    if not tuned(c, cm):
+        return _bwd_general(x, w1, b1, w2, b2, w3, b3, w4, b4, dy, residual)
     lib = library_bwd()
     n = lib.convres_bwd_partial_size(c)
     nblk = _bwd_blocks(x)
@@ -212,6 +263,34 @@ def _bwd_kernel(x, w1, b1, w2, b2, w3, b3, w4, b4, dy, residual) -> tuple:
         int(residual), nblk, _DTYPES[x.dtype], _build.stream(x))
     _build.check(status, "convres_bwd")
     sizes = [c * cm, cm, 9 * cm * cm, cm, 9 * cm * cm, cm, cm * c, c]
+    grads = torch.split(out, sizes)
+    return (dx, *(g.view(t.shape) for g, t in
+                  zip(grads, (w1, b1, w2, b2, w3, b3, w4, b4))))
+
+
+def _bwd_general(x, w1, b1, w2, b2, w3, b3, w4, b4, dy, residual) -> tuple:
+    """K3's width-general route (csrc/convres_general.cu): what
+    _bwd_kernel returns, at every width the tuned kernel does not take."""
+    bsz, h, w, c = x.shape
+    cm = w1.shape[-1]
+    lib = library_general()
+    pix = lib.convres_general_samples(bsz, h, w) * h * w * cm
+    scratch = torch.empty((6 * pix,), dtype=x.dtype, device=x.device)
+    scratch_f32 = torch.empty((3 * pix,), dtype=torch.float32, device=x.device)
+    part = torch.empty((lib.convres_bwd_general_part(bsz, h, w, c, cm),),
+                       dtype=torch.float32, device=x.device)
+    sizes = [c * cm, cm, 9 * cm * cm, cm, 9 * cm * cm, cm, cm * c, c]
+    out = torch.empty((sum(sizes),), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    ws = [_build.aligned(t.to(x.dtype).contiguous()) for t in (w1, w2, w3, w4)]
+    bs = [_build.aligned(t.float().contiguous()) for t in (b1, b2, b3)]
+    p = _build.ptr
+    LAUNCHES["convres_bwd_general"] += 1
+    _build.check(lib.convres_bwd_general(
+        p(x), p(dy), p(ws[0]), p(bs[0]), p(ws[1]), p(bs[1]), p(ws[2]),
+        p(bs[2]), p(ws[3]), p(dx), p(out), p(scratch), p(scratch_f32),
+        p(part), bsz, h, w, c, cm, int(residual), _DTYPES[x.dtype],
+        _build.stream(x)), "convres_bwd_general")
     grads = torch.split(out, sizes)
     return (dx, *(g.view(t.shape) for g, t in
                   zip(grads, (w1, b1, w2, b2, w3, b3, w4, b4))))
@@ -261,10 +340,9 @@ def fused_convres_block(x, w1, b1, w2, b2, w3, b3, w4, b4,
 
 
 def cost(bsz: int, h: int, w: int, c: int, itemsize: int,
-         scale: Optional[str]) -> dict:
+         scale: Optional[str], cm: int = MID_CHANNELS) -> dict:
     """Bytes the forward must move (x once, y once, weights) and FLOPs it
     must do (the four convs; mish counted as 8 operations)."""
-    cm = MID_CHANNELS
     pix = bsz * h * w
     out_pix = {None: pix, "up": 4 * pix, "down": pix // 4}[scale]
     weights = (2 * c * cm + 18 * cm * cm) * itemsize + (3 * cm + c) * 4
@@ -274,7 +352,8 @@ def cost(bsz: int, h: int, w: int, c: int, itemsize: int,
     }
 
 
-def cost_bwd(bsz: int, h: int, w: int, c: int, itemsize: int) -> dict:
+def cost_bwd(bsz: int, h: int, w: int, c: int, itemsize: int,
+             cm: int = MID_CHANNELS) -> dict:
     """Bytes the backward must move (x and dy read once, dx written once,
     the weights read, the eight float32 gradients written) and FLOPs it
     must do: the first three convs recomputed (p1..p3; the last 1x1's
@@ -282,7 +361,6 @@ def cost_bwd(bsz: int, h: int, w: int, c: int, itemsize: int) -> dict:
     first one's included, as dx needs it) and the weight gradient of
     every conv, each as many products as the forward's conv; mish,
     mish' and the masks counted as 8 + 12 operations a channel."""
-    cm = MID_CHANNELS
     pix = bsz * h * w
     conv = 2 * (2 * c * cm + 18 * cm * cm)
     n_w = 2 * c * cm + 18 * cm * cm + 3 * cm + c

@@ -8,9 +8,14 @@ On a CUDA tensor the forward is two hand-written kernels
 (csrc/linear_attention.cu, K4): `linear_attention_ctx`, per-chunk
 softmax partials with their own running max, merged in chunk order,
 and `linear_attention_out`, the q product with ctx rounded to q's
-dtype, as the TPU kernel rounds it.  On a CPU tensor
-`plain` runs, which repeats those roundings.  The backward is autograd
-through `reference_impl`, as the JAX custom VJP does.
+dtype, as the TPU kernel rounds it.  The kernels take heads of any
+multiple of 32 dimensions; `linear_attention` takes any dim_head and
+zero-pads each head to the next multiple of 32 (`pad_heads`), which is
+exact: a padded k dimension's softmax is uniform over the tokens but
+meets a zero q dimension, and a padded v dimension gives a zero column,
+sliced off.  On a CPU tensor `plain` runs, which repeats the kernels'
+roundings.  The backward is autograd through `reference_impl`, as the
+JAX custom VJP does.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch
 from dddpm_tpu_torch.ops import _build
 
 DIM_HEAD = 32
-WIDTHS = (32, 64, 128)    # heads * dim_head the kernel takes
+HEAD_STEP = 32            # the kernels' heads: multiples of 32 dimensions
 TOKEN_TILE = 64           # TN in csrc/linear_attention.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,22 +72,44 @@ def plain(q, k, v, dim_head: int = DIM_HEAD):
     return out_plain(q, ctx_plain(k, v, dim_head))
 
 
-def blocks_of(ctx):
+def blocks_of(ctx, dim_head: int = DIM_HEAD):
     """The heads' diagonal blocks (B, heads, d, d) of the kernel's ctx
     (B, HD, HD)."""
     b, hd, _ = ctx.shape
-    heads = hd // DIM_HEAD
-    c = ctx.reshape(b, heads, DIM_HEAD, heads, DIM_HEAD)
+    heads = hd // dim_head
+    c = ctx.reshape(b, heads, dim_head, heads, dim_head)
     return torch.stack([c[:, h, :, h] for h in range(heads)], dim=1)
+
+
+def pad_heads(t, dim_head: int):
+    """(B, N, heads * dim_head) -> (B, N, heads * dp), each head's
+    dimensions zero-padded to dp, the next multiple of HEAD_STEP; t
+    itself where dim_head is one."""
+    dp = -(-dim_head // HEAD_STEP) * HEAD_STEP
+    if dp == dim_head:
+        return t
+    b, n, hd = t.shape
+    out = t.new_zeros((b, n, hd // dim_head, dp))
+    out[..., :dim_head] = _split(t, dim_head)
+    return out.reshape(b, n, -1)
+
+
+def unpad_heads(t, dim_head: int):
+    """The inverse of pad_heads: each head's first dim_head dimensions."""
+    dp = -(-dim_head // HEAD_STEP) * HEAD_STEP
+    if dp == dim_head:
+        return t
+    b, n, _ = t.shape
+    return _split(t, dp)[..., :dim_head].reshape(b, n, -1).contiguous()
 
 
 def _lib():
     lib = _build.load("linear_attention")
     if lib.lin_ctx.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.lin_ctx.argtypes = [vp] * 6 + [i] * 6 + [vp]
+        lib.lin_ctx.argtypes = [vp] * 6 + [i] * 7 + [vp]
         lib.lin_ctx.restype = i
-        lib.lin_out.argtypes = [vp] * 3 + [i] * 4 + [vp]
+        lib.lin_out.argtypes = [vp] * 3 + [i] * 5 + [vp]
         lib.lin_out.restype = i
     return lib
 
@@ -111,36 +138,45 @@ def _check(ts, dim_head):
             raise ValueError("q, k, v must be contiguous and match in shape, "
                              "dtype and device")
     hd = q.shape[-1]
-    if dim_head != DIM_HEAD or hd not in WIDTHS:
-        raise ValueError(f"kernel takes heads of {DIM_HEAD} and widths "
-                         f"{WIDTHS}, got {hd} as heads of {dim_head}")
+    if dim_head < 1 or hd % dim_head:
+        raise ValueError(f"q, k, v's width {hd} is not heads of {dim_head}")
+
+
+def _check_kernel(ts, dim_head):
+    """_check, and the kernels' own head width: a multiple of HEAD_STEP."""
+    _check(ts, dim_head)
+    if dim_head % HEAD_STEP:
+        raise ValueError(f"the kernels take heads of a multiple of "
+                         f"{HEAD_STEP} dimensions, got {dim_head} (pad_heads)")
 
 
 def linear_attention_ctx(k, v, dim_head: int = DIM_HEAD):
     """K4, the ctx kernel: (B, HD, HD) f32, blockdiag over heads of
-    (exp(k - m)^T v) / sum exp(k - m), m the max over tokens."""
-    _check((k, v), dim_head)
+    (exp(k - m)^T v) / sum exp(k - m), m the max over tokens; dim_head
+    a multiple of HEAD_STEP."""
+    _check_kernel((k, v), dim_head)
     bsz, n, hd = k.shape
     nchunks, tpc = _chunks(bsz, n, k.device)
     f32 = dict(dtype=torch.float32, device=k.device)
     part_m = torch.empty((bsz, nchunks, hd), **f32)
     part_s = torch.empty((bsz, nchunks, hd), **f32)
-    part_a = torch.empty((bsz, nchunks, hd // DIM_HEAD, DIM_HEAD, DIM_HEAD),
+    part_a = torch.empty((bsz, nchunks, hd // dim_head, dim_head, dim_head),
                          **f32)
     ctx = torch.empty((bsz, hd, hd), **f32)
     lib = _lib()
     LAUNCHES["lin_ctx"] += 1
     p = _build.ptr
     _build.check(lib.lin_ctx(p(k), p(v), p(part_m), p(part_s), p(part_a), p(ctx),
-                             bsz, n, hd, nchunks, tpc, _DTYPES[k.dtype],
+                             bsz, n, hd, dim_head, nchunks, tpc, _DTYPES[k.dtype],
                              _build.stream(k)), "lin_ctx")
     return ctx
 
 
-def linear_attention_out(q, ctx):
+def linear_attention_out(q, ctx, dim_head: int = DIM_HEAD):
     """K4, the out kernel: q @ ctx (B, HD, HD, f32) over each head's
-    block, ctx rounded to q's dtype, f32 sums, rounded to q's dtype."""
-    _check((q,), DIM_HEAD)
+    block, ctx rounded to q's dtype, f32 sums, rounded to q's dtype;
+    dim_head a multiple of HEAD_STEP."""
+    _check_kernel((q,), dim_head)
     bsz, n, hd = q.shape
     if (ctx.shape != (bsz, hd, hd) or ctx.dtype != torch.float32
             or ctx.device != q.device or not ctx.is_contiguous()):
@@ -150,15 +186,21 @@ def linear_attention_out(q, ctx):
     lib = _lib()
     LAUNCHES["lin_out"] += 1
     p = _build.ptr
-    _build.check(lib.lin_out(p(q), p(ctx), p(out), bsz, n, hd, _DTYPES[q.dtype],
+    _build.check(lib.lin_out(p(q), p(ctx), p(out), bsz, n, hd, dim_head,
+                             _DTYPES[q.dtype],
                              _build.stream(q)), "lin_out")
     return out
 
 
 def _kernel(q, k, v, dim_head):
-    """K4 on CUDA tensors; raises on what it does not take."""
+    """K4 on CUDA tensors, each head zero-padded to a multiple of
+    HEAD_STEP dimensions where it is not one; raises on what it does not
+    take."""
     _check((q, k, v), dim_head)
-    return linear_attention_out(q, linear_attention_ctx(k, v, dim_head))
+    dp = -(-dim_head // HEAD_STEP) * HEAD_STEP
+    qp, kp, vp = (pad_heads(t, dim_head) for t in (q, k, v))
+    out = linear_attention_out(qp, linear_attention_ctx(kp, vp, dp), dp)
+    return unpad_heads(out, dim_head)
 
 
 class _LinearAttentionFn(torch.autograd.Function):
@@ -192,13 +234,14 @@ def linear_attention(q, k, v, dim_head: int = DIM_HEAD) -> torch.Tensor:
     return _LinearAttentionFn.apply(q, k, v, dim_head)
 
 
-def cost(bsz: int, n: int, hd: int, itemsize: int) -> dict:
+def cost(bsz: int, n: int, hd: int, itemsize: int,
+         dim_head: int = DIM_HEAD) -> dict:
     """Bytes each K4 kernel must move and FLOPs it must do: the ctx
     kernel reads k and v once and writes ctx (exp, max and sum ~4 a
-    value, the diagonal blocks of p^T v 2 x 32); the out kernel reads q
-    and ctx once and writes out (2 x 32 a value)."""
+    value, the diagonal blocks of p^T v 2 x dim_head); the out kernel
+    reads q and ctx once and writes out (2 x dim_head a value)."""
     ctx_bytes = bsz * hd * hd * 4
     return {"lin_ctx": {"bytes": 2 * bsz * n * hd * itemsize + ctx_bytes,
-                        "flops": bsz * n * hd * (4 + 2 * DIM_HEAD)},
+                        "flops": bsz * n * hd * (4 + 2 * dim_head)},
             "lin_out": {"bytes": 2 * bsz * n * hd * itemsize + ctx_bytes,
-                        "flops": bsz * n * hd * 2 * DIM_HEAD}}
+                        "flops": bsz * n * hd * 2 * dim_head}}

@@ -103,3 +103,26 @@ def min_max_norm_image(x: torch.Tensor) -> torch.Tensor:
     x_min = flat.amin(dim=1).reshape(shape)
     x_max = flat.amax(dim=1).reshape(shape)
     return (x - x_min) / (x_max - x_min)
+
+
+def pad_conv_channels(x, w, b, cin_step: int, cout_step: int, per_bc=()):
+    """A conv's operands with their channels zero-padded to multiples of
+    cin_step (inputs) and cout_step (outputs), for a kernel that takes
+    only such widths: NHWC x (B, H, W, Cin), HWIO w (kh, kw, Cin, Cout),
+    b (Cout,) and per-(batch, input channel) arrays (B, Cin) or None.
+    Returns (x, w, b, per_bc); each tensor itself where it needs no pad.
+    Exact: a padded input channel is zero, and so is its prologue
+    (mish(0 * 0 + 0) + 0), and it meets zero weights; the caller slices
+    the padded output channels off."""
+    cin, cout = w.shape[2], w.shape[3]
+    pi = -(-cin // cin_step) * cin_step - cin
+    po = -(-cout // cout_step) * cout_step - cout
+    if pi:
+        x = F.pad(x, (0, pi))
+        per_bc = tuple(None if t is None else F.pad(t.reshape(t.shape[0], cin),
+                                                     (0, pi)) for t in per_bc)
+    if pi or po:
+        w = F.pad(w, (0, po, 0, pi))
+    if po:
+        b = F.pad(b, (0, po))
+    return x, w, b, tuple(per_bc)

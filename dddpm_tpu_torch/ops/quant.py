@@ -38,8 +38,7 @@ import torch.nn.functional as F
 
 from dddpm_tpu_torch.ops import _build
 
-CIN_STEP = 32     # csrc/int8_conv.cu: one k32 step of input channels
-COUT_STEP = 64    # output channels Q1 takes in steps of
+CIN_STEP = 32     # the packed weights' K: Cin rounded up to one k32 step
 NPAD_STEP = 128   # the packed weights' rows: Cout rounded up to a wgmma n128 tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -91,11 +90,11 @@ def observed_amax(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 class QWeight(NamedTuple):
     """A quantized 3x3 kernel: `wq` (Cout, Cin, 3, 3) int8, `ws` (Cout,)
-    f32, and `packed`, the kernel's layout, or None where Q1 does not
-    take the shape (Cin % CIN_STEP or Cout % COUT_STEP): int8 (9, Cin /
-    32, Npad / 8, 2, 8, 16), Npad = Cout rounded up to NPAD_STEP with zero
-    rows; per tap and 32 input channels, the 8-row x 16-byte core
-    matrices of wgmma's K-major B operand (csrc/int8_conv.cu)."""
+    f32, and `packed`, the kernel's layout: int8 (9, Kpad / 32, Npad / 8,
+    2, 8, 16), Kpad = Cin rounded up to CIN_STEP and Npad = Cout rounded
+    up to NPAD_STEP, with zero columns and rows; per tap and 32 input
+    channels, the 8-row x 16-byte core matrices of wgmma's K-major B
+    operand (csrc/int8_conv.cu)."""
     wq: torch.Tensor
     ws: torch.Tensor
     packed: Optional[torch.Tensor]
@@ -105,17 +104,16 @@ def pack_weight(wq: torch.Tensor) -> torch.Tensor:
     """An OIHW int8 kernel in Q1's packed layout (see QWeight)."""
     cout, cin = wq.shape[:2]
     npad = -(-cout // NPAD_STEP) * NPAD_STEP
-    taps = torch.zeros((9, npad, cin), dtype=torch.int8, device=wq.device)
-    taps[:, :cout] = wq.permute(2, 3, 0, 1).reshape(9, cout, cin)
-    return (taps.reshape(9, npad // 8, 8, cin // 32, 2, 16)
+    kpad = -(-cin // CIN_STEP) * CIN_STEP
+    taps = torch.zeros((9, npad, kpad), dtype=torch.int8, device=wq.device)
+    taps[:, :cout, :cin] = wq.permute(2, 3, 0, 1).reshape(9, cout, cin)
+    return (taps.reshape(9, npad // 8, 8, kpad // 32, 2, 16)
             .permute(0, 3, 1, 4, 2, 5).contiguous())
 
 
 def prepare_weight(w: torch.Tensor) -> QWeight:
     wq, ws = quantize_weight(w)
-    cout, cin = wq.shape[:2]
-    fits = cin % CIN_STEP == 0 and cout % COUT_STEP == 0
-    return QWeight(wq, ws, pack_weight(wq) if fits else None)
+    return QWeight(wq, ws, pack_weight(wq))
 
 
 def _dequant_plain(x, qw: QWeight, amax) -> torch.Tensor:
@@ -169,13 +167,40 @@ def _layout(t: torch.Tensor) -> int:
                      f"operands, got strides {t.stride()}")
 
 
-def _readable(t: torch.Tensor, nchw: int) -> torch.Tensor:
-    """t itself where Q1's TMA can read it in place: 16-byte aligned, and,
-    when NCHW, rows of a multiple of 16 bytes (W % 8 in bf16, W % 4 in
-    f32); else a channels_last copy.  No model shape needs the copy."""
-    if t.data_ptr() % 16 or (nchw and t.shape[3] * t.element_size() % 16):
-        return torch.empty_like(t, memory_format=torch.channels_last).copy_(t)
-    return t
+def _in_place(t: torch.Tensor) -> bool:
+    """Whether Q1's TMA reads t as it lies: 16-byte aligned, and its
+    rows (NCHW: W values) or pixels (channels_last: C values) a
+    multiple of 16 bytes."""
+    row = t.shape[3] if _layout(t) else t.shape[1]
+    return t.data_ptr() % 16 == 0 and row * t.element_size() % 16 == 0
+
+
+def _readable(ts: list) -> list:
+    """The operands as Q1 reads them: each itself where its TMA can read
+    it in place, else a channels_last copy; where C x the element size
+    is not a multiple of 16 bytes (no channels_last pixel pitch the TMA
+    takes) and an operand is not in place, every operand is copied
+    channels_last with its channels zero-padded to a 16-byte pixel (the
+    pad meets the packed weights' zero columns), so that they share one
+    channel count.  Of a model's shapes only a bf16 NCHW map of W % 8
+    != 0 is copied: a 32^2 DDPM with dims (1, 2, 2, 2) has 256 -> 256
+    convs at 4^2, rows of 8 bytes."""
+    c, es = ts[0].shape[1], ts[0].element_size()
+    if c * es % 16 == 0:
+        return [t if _in_place(t) else
+                torch.empty_like(t, memory_format=torch.channels_last).copy_(t)
+                for t in ts]
+    if all(_in_place(t) for t in ts):
+        return ts
+    cpad = -(-c * es // 16) * 16 // es
+    out = []
+    for t in ts:
+        b, _, h, w = t.shape
+        v = torch.zeros((b, h, w, cpad), dtype=t.dtype,
+                        device=t.device).permute(0, 3, 1, 2)
+        v[:, :c].copy_(t)
+        out.append(v)
+    return out
 
 
 def _kernel(x, qw, amax, skip, qw_skip, amax_skip, bias):
@@ -186,9 +211,6 @@ def _kernel(x, qw, amax, skip, qw_skip, amax_skip, bias):
         raise ValueError("x must be (B, C, H, W)")
     bsz, cin, h, w = x.shape
     cout = qw.ws.numel()
-    if cin % CIN_STEP or cout % COUT_STEP:
-        raise ValueError(f"kernel takes Cin % {CIN_STEP} == 0 and Cout % "
-                         f"{COUT_STEP} == 0, got {cin} -> {cout}")
     operands = [(x, qw, amax)]
     if skip is not None:
         if skip.shape != x.shape or skip.dtype != x.dtype:
@@ -196,7 +218,7 @@ def _kernel(x, qw, amax, skip, qw_skip, amax_skip, bias):
                              f"{skip.dtype} vs {tuple(x.shape)} {x.dtype}")
         operands.append((skip, qw_skip, amax_skip))
     npad = -(-cout // NPAD_STEP) * NPAD_STEP
-    want = (9, cin // 32, npad // 8, 2, 8, 16)
+    want = (9, -(-cin // CIN_STEP), npad // 8, 2, 8, 16)
     for v, q, a in operands:
         if v.device != x.device:
             raise ValueError(f"operands on {v.device} and {x.device}")
@@ -210,7 +232,7 @@ def _kernel(x, qw, amax, skip, qw_skip, amax_skip, bias):
             raise ValueError("amax must be one float32 value")
     if bias is not None and (bias.numel() != cout or bias.device != x.device):
         raise ValueError(f"bias must hold {cout} values on {x.device}")
-    xs = [_readable(v, _layout(v)) for v, _, _ in operands]
+    xs = _readable([v for v, _, _ in operands])
     layouts = [_layout(v) for v in xs]
     packed = [q.packed for _, q, _ in operands]
     ws = [q.ws.float().contiguous() for _, q, _ in operands]
@@ -224,7 +246,7 @@ def _kernel(x, qw, amax, skip, qw_skip, amax_skip, bias):
     _build.check(lib.int8_conv(
         p(xs[0]), p(packed[0]), p(ws[0]), p(amaxes[0]),
         sk(xs), sk(packed), sk(ws), sk(amaxes), p(bias_f), p(y),
-        bsz, h, w, cin, cout, _DTYPES[x.dtype], layouts[0],
+        bsz, h, w, xs[0].shape[1], cout, _DTYPES[x.dtype], layouts[0],
         layouts[-1] if len(layouts) > 1 else 0, _build.stream(x)),
         "int8_conv")
     return y

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from dddpm_tpu_torch.ops import _build
-from dddpm_tpu_torch.ops.math import mish
+from dddpm_tpu_torch.ops.math import mish, pad_conv_channels
 
 # B^T: input transform; G: filter transform; A^T: output transform
 BT = np.array([[1, 0, -1, 0],
@@ -46,8 +46,9 @@ AT = np.array([[1, 1, 1, 0],
 
 # CK in csrc/winograd.cu: input channels per stage, one mma k step
 CIN_STEP = 16
-# the Cout granule the wrapper takes; a block's 64 output channels mask
-# the channels past Cout
+# the Cout granule the C entry takes; a block's 64 output channels mask
+# the channels past Cout.  The wrapper zero-pads other widths
+# (ops/math.py:pad_conv_channels, exact) and slices the output
 COUT_STEP = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -166,8 +167,9 @@ def weights_kernel(w: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel(x, w, b, apply_mish):
-    """K6 on a CUDA tensor (the weight transform, then the conv); raises
-    on what it does not take."""
+    """K6 on a CUDA tensor (the weight transform, then the conv), its
+    channels zero-padded to CIN_STEP and COUT_STEP where they are not
+    multiples of them; raises on what it does not take."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
     if x.ndim != 4 or not x.is_contiguous():
@@ -176,13 +178,13 @@ def _kernel(x, w, b, apply_mish):
     cout = w.shape[-1]
     if h % 2 or wd % 2:
         raise ValueError(f"H and W must be even, got {h}x{wd}")
-    if cin % CIN_STEP or cout % COUT_STEP:
-        raise ValueError(f"kernel takes Cin % {CIN_STEP} == 0 and Cout % "
-                         f"{COUT_STEP} == 0, got {cin} -> {cout}")
     if tuple(w.shape) != (3, 3, cin, cout) or w.device != x.device:
         raise ValueError(f"w must be (3, 3, {cin}, Cout) on {x.device}")
     if tuple(b.shape) != (cout,) or b.device != x.device:
         raise ValueError(f"b must be ({cout},) on {x.device}")
+    if cin % CIN_STEP or cout % COUT_STEP:
+        x, w, b, _ = pad_conv_channels(x, w, b, CIN_STEP, COUT_STEP)
+        return _kernel(x, w, b, apply_mish)[..., :cout].contiguous()
     lib = library()
     p = _build.ptr
     u = weights_kernel(w)

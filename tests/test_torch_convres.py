@@ -141,8 +141,24 @@ def test_gate_matches_jax_where_the_kernel_applies():
     for (hh, ww), kw in cases:
         want = jres.ConvResBlock(use_pallas=True, **kw)._fused_shape_ok(hh, ww)
         assert resample.ConvResBlock(**kw).fused_shape_ok(hh, ww) == want, kw
-    # the kernel takes 32 mid channels only: wider blocks stay plain
-    assert not resample.ConvResBlock(64, 128, 128).fused_shape_ok(128, 128)
+    # wider blocks take the kernels too (the general route), as in JAX
+    assert resample.ConvResBlock(64, 128, 128).fused_shape_ok(128, 128)
+
+
+@pytest.mark.parametrize("cm", [32, 64, 96, 128, 48])
+def test_gate_equals_jax_over_widths(cm):
+    """The port's gate is JAX's _fused_shape_ok, with no width clause of
+    its own, over cio, map sizes (the 128^2 floor, the row tile, W % 4,
+    W % 8 at 'down') and scalings."""
+    for cio in (32, 64, 96, 128, 192, 256, 48):
+        for hh, ww in ((128, 128), (256, 256), (64, 64), (128, 126),
+                       (129, 128), (136, 128), (128, 132), (256, 100)):
+            for mode in ({}, {"upsample": True}, {"downsample": True}):
+                kw = dict(dim=cm, in_channels=cio, out_channels=cio, **mode)
+                want = jres.ConvResBlock(use_pallas=True,
+                                         **kw)._fused_shape_ok(hh, ww)
+                got = resample.ConvResBlock(**kw).fused_shape_ok(hh, ww)
+                assert got == want, (kw, hh, ww)
 
 
 def test_block_gives_grads_on_cpu_through_the_autograd_function():
@@ -183,6 +199,34 @@ def test_block_grads_match_jax_custom_vjp(scale, residual):
     want = jax.grad(jloss, argnums=tuple(range(9)))(*map(jnp.asarray, args))
     leaves = [torch.from_numpy(a).requires_grad_() for a in args]
     out = fused_convres_block(*leaves, residual=residual, scale=scale)
+    (out * torch.from_numpy(dy)).sum().backward()
+    names = ["dx", "dw1", "db1", "dw2", "db2", "dw3", "db3", "dw4", "db4"]
+    for name, t, w in zip(names, leaves, want):
+        assert t.grad.shape == w.shape, name
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), **GRAD_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("cm,cio", [(64, 128), (96, 192)])
+def test_wide_block_and_grads_match_jax_fused_kernel(cm, cio):
+    """At the widths of the general route (d_chans 128 and 192): the
+    port's block and its autograd Function's gradients (plain versions
+    on the CPU) against JAX's fused kernel and its custom VJP in
+    interpret mode, B = 1, 16 x 16, b1/b2 shifted by +2; the forward at
+    TOL, the gradients at GRAD_TOL, the existing tests' tolerances."""
+    args = _make(10, cio=cio, cm=cm, b=1, h=16, w=16, bias_shift=2.0)
+    dy = np.random.default_rng(11).standard_normal((1, 16, 16, cio)).astype(
+        np.float32)
+
+    def jloss(*a):
+        return jnp.sum(jax_fused(*a, True, True, None) * dy)
+
+    jargs = list(map(jnp.asarray, args))
+    want_y = np.asarray(jax_fused(*jargs, True, True, None))
+    want = jax.grad(jloss, argnums=tuple(range(9)))(*jargs)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    out = fused_convres_block(*leaves, residual=True)
+    np.testing.assert_allclose(out.detach().numpy(), want_y, **TOL)
     (out * torch.from_numpy(dy)).sum().backward()
     names = ["dx", "dw1", "db1", "dw2", "db2", "dw3", "db3", "dw4", "db4"]
     for name, t, w in zip(names, leaves, want):

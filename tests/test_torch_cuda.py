@@ -174,10 +174,9 @@ def test_attention_kernel_gradients_match_plain(card):
         _close(got, want, torch.float32)
 
 
-def _convres_args(card, bsz, h, w, c, dtype, seed):
+def _convres_args(card, bsz, h, w, c, dtype, seed, cm=cr.MID_CHANNELS):
     gen = torch.Generator(device=card).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=gen, device=card)
-    cm = cr.MID_CHANNELS
     return (r(bsz, h, w, c).to(dtype),
             r(1, 1, c, cm) / c ** 0.5, 0.1 * r(cm) + 2.0,
             r(3, 3, cm, cm) / (9 * cm) ** 0.5, 0.1 * r(cm) + 2.0,
@@ -256,6 +255,133 @@ def test_convres_autograd_on_card_matches_plain(card, scale):
         _close(got, want, torch.float32)
 
 
+# (cm, cio) of the width-general route (csrc/convres_general.cu): the
+# ConvResNet blocks of d_chans 128, 192 and 256, and cm 32 at a cio the
+# tuned kernels do not take
+GENERAL_WIDTHS = [(64, 128), (96, 192), (128, 256), (32, 96)]
+# (2, 24, 40): 1920 pixels, 30 whole 64-pixel tiles; (1, 70, 66): 4620,
+# the last tile partial and rows that do not start tiles; at cio 96 and
+# cm 96 the last 64-channel tile is half full
+GENERAL_SHAPES = [(2, 24, 40), (1, 70, 66)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [None, "up", "down"])
+@pytest.mark.parametrize("cm,c", GENERAL_WIDTHS)
+@pytest.mark.parametrize("bsz,h,w", GENERAL_SHAPES)
+def test_convres_general_matches_plain(card, dtype, scale, cm, c, bsz, h, w):
+    """K2's width-general route against reference_impl, with and without
+    the residual; its counter moves and the tuned kernel's does not."""
+    args, _ = _convres_args(card, bsz, h, w, c, dtype, h * w + c + cm, cm)
+    before = dict(cr.LAUNCHES)
+    with torch.no_grad():
+        for residual in (True, False):
+            got = cr.fused_convres_block(*args, residual=residual, scale=scale)
+            _close(got, cr.reference_impl(*args, residual=residual,
+                                          scale=scale), dtype)
+    torch.cuda.synchronize()
+    assert cr.LAUNCHES["convres_fwd_general"] == before["convres_fwd_general"] + 2
+    assert cr.LAUNCHES["convres_fwd"] == before["convres_fwd"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cm,c", GENERAL_WIDTHS)
+@pytest.mark.parametrize("bsz,h,w", GENERAL_SHAPES)
+def test_convres_general_backward_matches_plain(card, dtype, cm, c, bsz, h, w):
+    """K3's width-general route (dx and the eight dW/db) against
+    backward_reference, with b1/b2 shifted by +2 so that a padding slip
+    shows at the border."""
+    args, gen = _convres_args(card, bsz, h, w, c, dtype, h * w + c + cm + 1, cm)
+    dy = torch.randn(bsz, h, w, c, generator=gen, device=card).to(dtype)
+    before = dict(cr.LAUNCHES)
+    for residual in (True, False):
+        got = cr._bwd_kernel(*args, dy, residual)
+        want = cr.backward_reference(*args, dy, residual)
+        for g, t in zip(got, want):
+            assert g.shape == t.shape and g.dtype == t.dtype
+            _close(g, t, dtype)
+    torch.cuda.synchronize()
+    assert cr.LAUNCHES["convres_bwd_general"] == before["convres_bwd_general"] + 2
+    assert cr.LAUNCHES["convres_bwd"] == before["convres_bwd"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_convres_general_check_fails_mirrored_taps(card, dtype):
+    """The checks above see a wrong 3x3 on the general route: forward
+    with w2's kx taps mirrored, backward with w3's taps mirrored, each
+    misses the plain version on the true weights by more than 5x the
+    tolerance."""
+    args, gen = _convres_args(card, 2, 24, 40, 128, dtype, 29, cm=64)
+    dy = torch.randn(2, 24, 40, 128, generator=gen, device=card).to(dtype)
+    fwd = (*args[:3], args[3].flip(1).contiguous(), *args[4:])
+    with torch.no_grad():
+        want = cr.reference_impl(*args, residual=False)
+        got = cr.fused_convres_block(*fwd, residual=False)
+    assert float((got.float() - want.float()).abs().max()) > 5 * _tol(want, dtype)
+    bwd = (*args[:5], args[5].flip(0).flip(1).contiguous(), *args[6:])
+    want = cr.backward_reference(*args, dy, True)
+    miss = max(float((g.float() - t.float()).abs().max()) / _tol(t, dtype)
+               for g, t in zip(cr._bwd_kernel(*bwd, dy, True), want))
+    assert miss > 5, miss
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_convres_general_runs_a_large_batch_in_chunks(card, dtype):
+    """Past 2^19 pixels the general route runs the batch in chunks of
+    samples (9 x 256^2: 8 and 1), the backward summing the chunks'
+    weight gradients: both against their plain versions ('down' forward,
+    which pools in the last conv's epilogue)."""
+    args, gen = _convres_args(card, 9, 256, 256, 128, dtype, 37, cm=64)
+    with torch.no_grad():
+        _close(cr.fused_convres_block(*args, residual=True, scale="down"),
+               cr.reference_impl(*args, residual=True, scale="down"), dtype)
+    dy = torch.randn(9, 256, 256, 128, generator=gen, device=card).to(dtype)
+    for g, t in zip(cr._bwd_kernel(*args, dy, True),
+                    cr.backward_reference(*args, dy, True)):
+        _close(g, t, dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_convres_general_bwd_is_deterministic(card, dtype):
+    """Two launches of the general backward at cm 128 give the same bits:
+    the weight gradients' pixel chunks are summed in chunk order."""
+    args, gen = _convres_args(card, 2, 64, 64, 256, dtype, 31, cm=128)
+    dy = torch.randn(2, 64, 64, 256, generator=gen, device=card).to(dtype)
+    first = cr._bwd_kernel(*args, dy, True)
+    second = cr._bwd_kernel(*args, dy, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d_chans", [128, 192, 256])
+def test_convresnet_runs_its_blocks_through_the_general_route(card, d_chans):
+    """A ConvResNet of d_chans past 64 at 128^2 (the JAX gate's least
+    map) sends each block through K2's general route, and under autograd
+    through K3's: the plain path does not run instead.  f32 against the
+    same module with its gate closed (use_pallas False: the plain path)."""
+    from dddpm_tpu_torch.models.resample import ConvResNet
+
+    torch.manual_seed(d_chans)
+    net = ConvResNet(d_chans, 8, 3, 1, upsample=True, n_blocks=2).to(card)
+    plain = ConvResNet(d_chans, 8, 3, 1, upsample=True, n_blocks=2,
+                       use_pallas=False).to(card)
+    plain.load_state_dict(net.state_dict())
+    x = torch.randn(1, 8, 64, 64, device=card)
+    before = dict(cr.LAUNCHES)
+    y = net(x)
+    # the 'up' block runs at 64^2 (under the gate's 128^2), the plain
+    # block at 128^2 through the general route
+    assert cr.LAUNCHES["convres_fwd_general"] == before["convres_fwd_general"] + 1
+    y.square().sum().backward()
+    assert cr.LAUNCHES["convres_bwd_general"] == before["convres_bwd_general"] + 1
+    y_plain = plain(x)
+    y_plain.square().sum().backward()
+    _close(y.detach(), y_plain.detach(), torch.float32)
+    for (name, p), q in zip(net.named_parameters(), plain.parameters()):
+        _close(p.grad, q.grad, torch.float32)
+
+
 def test_kernel_paths_refuse_what_they_cannot_take(card):
     x = torch.zeros(1, 1024, 48, device=card)
     g = torch.ones(48, device=card)
@@ -279,28 +405,30 @@ def test_kernel_paths_refuse_what_they_cannot_take(card):
     with pytest.raises(ValueError):
         cr.fused_convres_block(xm.view(1, 8, 8, 32), *cw)
     z = lambda *s, dt=torch.float32: torch.zeros(*s, device=card, dtype=dt)
-    # K5: a wrong dtype, an unsupported width (Cin 48), a lone post_bias
+    # K5: a wrong dtype, weights of another Cin, a lone post_bias (any
+    # width runs: the wrapper pads)
     with pytest.raises(TypeError):
         c3.conv3x3_fused(z(1, 8, 8, 64, dt=torch.float16), z(3, 3, 64, 64), z(64))
     with pytest.raises(ValueError):
-        c3.conv3x3_fused(z(1, 8, 8, 48), z(3, 3, 48, 64), z(64))
+        c3.conv3x3_fused(z(1, 8, 8, 48), z(3, 3, 40, 64), z(64))
     with pytest.raises(ValueError):
         c3.conv3x3_fused(z(1, 8, 8, 64), z(3, 3, 64, 64), z(64), post_bias=z(1, 64))
-    # K6: a wrong dtype, odd H or W, an unsupported width (Cin 24)
+    # K6: a wrong dtype, odd H or W, weights of another Cin
     with pytest.raises(TypeError):
         wg.conv3x3_winograd(z(1, 8, 8, 32, dt=torch.float16), z(3, 3, 32, 32), z(32))
     for hw in ((7, 8), (8, 9)):
         with pytest.raises(ValueError):
             wg.conv3x3_winograd(z(1, *hw, 32), z(3, 3, 32, 32), z(32))
     with pytest.raises(ValueError):
-        wg.conv3x3_winograd(z(1, 8, 8, 24), z(3, 3, 24, 32), z(32))
-    # K4: a wrong dtype, an unsupported width (96), another head size
+        wg.conv3x3_winograd(z(1, 8, 8, 24), z(3, 3, 16, 32), z(32))
+    # K4: a wrong dtype, a width that is not whole heads (96 as heads of
+    # 40), q, k, v of other shapes (any head width runs: the wrapper pads)
     with pytest.raises(TypeError):
         la.linear_attention(*(z(1, 64, 64, dt=torch.float16),) * 3)
     with pytest.raises(ValueError):
-        la.linear_attention(*(z(1, 64, 96),) * 3)
+        la.linear_attention(*(z(1, 64, 96),) * 3, dim_head=40)
     with pytest.raises(ValueError):
-        la.linear_attention(*(z(1, 64, 64),) * 3, dim_head=16)
+        la.linear_attention(z(1, 64, 64), z(1, 64, 64), z(1, 32, 64))
     # K1c: a wrong dtype, a w_q of another width than x's (288 against 320)
     with pytest.raises(TypeError):
         ab.attention_1pass(z(1, 1024, 64, dt=torch.float16), z(64), z(64),
@@ -339,7 +467,8 @@ def _conv3x3_args(r, bsz, cin, mode, dtype):
     # bf16 takes the 16 x 16 band where it gives a block per SM (132 on
     # an H100 SXM), the 8 x 16 band below that (every case above)
     (3, 128, 128, 128, 128),  # 16 x 16 bands, 192 blocks
-    (4, 100, 84, 64, 192)])   # 16 x 16 bands, partial both ways, Cout 192
+    (4, 100, 84, 64, 192),    # 16 x 16 bands, partial both ways, Cout 192
+    (1, 12, 20, 40, 72)])     # ragged: padded to 64 -> 128 in the wrapper
 def test_conv3x3_kernel_matches_plain(card, dtype, mode, bsz, h, w, cin, cout):
     """K5 in each prologue mode; 13 x 20 and the others leave partial
     bands; shift != 0, so a halo padded with prologue(0) would show."""
@@ -385,7 +514,8 @@ def test_conv3x3_f32_keeps_f32_accuracy(card, mode):
     (1, 16, 16, 16, 64),      # Cin 16: a single stage
     (1, 16, 16, 64, 32),      # Cout 32: half of a 64-wide block masked
     (1, 18, 30, 32, 96),      # partial bands both ways, Cout 96
-    (3, 20, 36, 48, 160)])    # Cout 160: the last 64-wide block half masked
+    (3, 20, 36, 48, 160),     # Cout 160: the last 64-wide block half masked
+    (1, 12, 20, 24, 40)])     # ragged: padded to 32 -> 64 in the wrapper
 def test_winograd_kernel_matches_plain(card, dtype, apply_mish, bsz, h, w, cin,
                                        cout):
     """K6 against the plain version with its bf16 roundings of V and U;
@@ -430,6 +560,29 @@ def test_linear_attention_kernel_matches_plain(card, dtype, bsz, n, hd):
     _close(la.blocks_of(ctx), la.ctx_plain(k, v), torch.float32)
     if hd > 32:
         assert float(ctx[:, :32, 32:].abs().max()) == 0.0   # block diagonal
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# heads of 20 (padded to 32 in the wrapper), 48 (padded to 64), 64 and 128
+# (the kernels' own widths, (DH / 32)^2 blocks of A a head)
+@pytest.mark.parametrize("bsz,n,hd,dim_head", [(2, 777, 60, 20), (2, 300, 96, 48),
+                                               (1, 1000, 128, 64), (1, 500, 256, 128)])
+def test_linear_attention_heads_of_any_width(card, dtype, bsz, n, hd, dim_head):
+    """K4 at head widths other than 32 against its plain version: the
+    ctx kernel's diagonal blocks and the whole op (both kernels launch
+    once each)."""
+    r = _rand(card, n + hd + dim_head)
+    q, k, v = (r(bsz, n, hd).to(dtype) for _ in range(3))
+    before = dict(la.LAUNCHES)
+    got = la.linear_attention(q, k, v, dim_head)
+    assert la.LAUNCHES == {name: c + 1 for name, c in before.items()}
+    assert got.shape == q.shape
+    _close(got, la.plain(q, k, v, dim_head), dtype)
+    if dim_head % 32 == 0:
+        ctx = la.linear_attention_ctx(k, v, dim_head)
+        _close(la.blocks_of(ctx, dim_head), la.ctx_plain(k, v, dim_head),
+               torch.float32)
     torch.cuda.synchronize()
 
 
@@ -840,10 +993,15 @@ def test_inception_on_card_matches_cpu(card):
 
 
 # Q1, the int8 conv: the five shape classes of the x2 UNet's quantized
-# convs (B = 2) and a ragged shape with other widths
+# convs (B = 2) and ragged shapes with other widths: Cin and Cout not
+# multiples of 32 or 64 (160: unet_chan 160; 144 at 13 x 21, whose NCHW
+# rows are copied channels_last; 130: channels_last pixels of 260 or
+# 520 bytes, copied with the channels padded)
 INT8_SHAPES = [(2, 128, 128, 128, 128), (2, 64, 64, 256, 256),
                (2, 64, 64, 128, 128), (2, 32, 32, 256, 256),
-               (2, 16, 16, 256, 256), (1, 13, 21, 96, 192)]
+               (2, 16, 16, 256, 256), (1, 13, 21, 96, 192),
+               (2, 16, 16, 160, 160), (1, 13, 21, 144, 144),
+               (1, 8, 8, 130, 130)]
 
 
 def _int8_args(card, bsz, h, w, cin, cout, dtype, seed, skip):
@@ -979,10 +1137,11 @@ def test_int8_conv_check_fails_a_wrong_plain(card, fault, monkeypatch):
 def test_int8_conv_refuses_what_it_cannot_take(card):
     z = lambda *s, dt=torch.float32: torch.zeros(*s, device=card, dtype=dt)
     qw = qt.prepare_weight(z(64, 48, 3, 3))
-    with pytest.raises(ValueError):          # Cin 48
-        qt.int8_conv_q(z(1, 48, 8, 8), qw, z(()))
-    with pytest.raises(ValueError):          # Cout 96
-        qt.int8_conv_q(z(1, 64, 8, 8), qt.prepare_weight(z(96, 64, 3, 3)), z(()))
+    with pytest.raises(ValueError):          # weights packed for Cin 48
+        qt.int8_conv_q(z(1, 96, 8, 8), qw, z(()))
+    with pytest.raises(ValueError):          # a bias of 64 for Cout 96
+        qt.int8_conv_q(z(1, 64, 8, 8), qt.prepare_weight(z(96, 64, 3, 3)), z(()),
+                       bias=z(64))
     qw = qt.prepare_weight(z(64, 64, 3, 3))
     with pytest.raises(TypeError):
         qt.int8_conv_q(z(1, 64, 8, 8, dt=torch.float16), qw, z(()))

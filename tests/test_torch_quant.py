@@ -146,7 +146,26 @@ def test_packed_weights_are_the_kernels_layout():
     full = p.transpose(0, 2, 4, 1, 3, 5).reshape(3, 3, 256, 64)
     np.testing.assert_array_equal(full[:, :, :192], w.transpose(2, 3, 0, 1))
     assert not full[:, :, 192:].any()
-    assert tq.prepare_weight(torch.randn(64, 48, 3, 3)).packed is None
+    # every width packs: Cin 48 to K 64 with zero columns past 48
+    ragged = tq.prepare_weight(torch.randn(64, 48, 3, 3)).packed
+    assert ragged.shape == (9, 2, 16, 2, 8, 16)
+    assert not ragged.numpy()[:, 1, :, 1].any()
+
+
+@pytest.mark.parametrize("cout,cin", [(144, 144), (160, 160), (130, 130),
+                                      (256, 100)])
+def test_prepare_weight_packs_every_width(cout, cin):
+    """prepare_weight packs any Cin and Cout (Q1 takes every width JAX's
+    gate quantizes): K padded to a multiple of 32, Cout to one of 128,
+    with zeros, and the rest the quantized weights."""
+    qw = tq.prepare_weight(torch.randn(cout, cin, 3, 3,
+                                       generator=torch.Generator().manual_seed(cin)))
+    kpad, npad = -(-cin // 32) * 32, -(-cout // 128) * 128
+    assert qw.packed.shape == (9, kpad // 32, npad // 8, 2, 8, 16)
+    full = qw.packed.numpy().transpose(0, 2, 4, 1, 3, 5).reshape(3, 3, npad, kpad)
+    np.testing.assert_array_equal(full[:, :, :cout, :cin],
+                                  qw.wq.numpy().transpose(2, 3, 0, 1))
+    assert not full[:, :, cout:].any() and not full[:, :, :, cin:].any()
 
 
 def _quantize8_rule(v: np.ndarray, xs: np.float32):
@@ -258,6 +277,36 @@ def test_kernel_copies_only_an_operand_it_cannot_read(monkeypatch):
     assert a1[0].value != odd.data_ptr() and a1[16] == 0
     assert a2[0].value == view.data_ptr() and a2[16] == 0 and a2[17] == 1
     assert a3[0].value != shifted.data_ptr() and a3[0].value % 16 == 0 and a3[16] == 0
+
+
+# (C, x's layout): 144 and 160, the widths of an int8 unet_chan 144 / 160
+# model, both layouts in place; 130 in bf16 (260-byte pixels): NCHW in
+# place, channels_last copied with its channels padded to 136
+@pytest.mark.parametrize("c,x_layout", [(144, "nchw"), (144, "cl"), (160, "nchw"),
+                                        (160, "cl"), (130, "nchw"), (130, "cl")])
+def test_kernel_takes_ragged_widths(monkeypatch, c, x_layout):
+    """Q1's wrapper (recorder for the library) at channel counts that are
+    not multiples of 32: the packed weights of K rounded up to 32, the
+    operands in place where the TMA reads them, and the C entry given
+    the operands' channel count."""
+    rec = _Recorder()
+    monkeypatch.setattr(tq, "_lib", lambda: rec)
+    monkeypatch.setattr(tq._build, "stream", lambda t: ctypes.c_void_p(None))
+    gen = torch.Generator().manual_seed(c)
+    mk = lambda: torch.randn(2, c, 6, 8, generator=gen).to(torch.bfloat16).contiguous(
+        memory_format=_FMT[x_layout])
+    x, skip = mk(), mk()
+    qw = tq.prepare_weight(torch.randn(c, c, 3, 3, generator=gen))
+    y = tq._kernel(x, qw, torch.tensor(3.0), skip, qw, torch.tensor(2.0), None)
+    (args,) = rec.calls
+    assert args[1].value == qw.packed.data_ptr()
+    assert qw.packed.shape[1] == -(-c // 32)
+    copied = c == 130 and x_layout == "cl"
+    assert (args[0].value == x.data_ptr()) != copied
+    assert (args[4].value == skip.data_ptr()) != copied
+    assert args[16] == args[17] == (1 if x_layout == "nchw" else 0)
+    assert args[10:15] == (2, 6, 8, 136 if copied else c, c)
+    assert y.shape == (2, c, 6, 8) and y.is_contiguous()
 
 
 @pytest.mark.parametrize("which", ["x", "skip"])

@@ -304,16 +304,18 @@ def test_loader_matches_jax():
 
 def test_config_matches_jax_without_tpu_flags():
     argv = ["-d", "synthetic", "-e", "7", "-bs", "8", "-is", "16",
-            "-downsample", "3", "--T", "50", "--compute-dtype", "float32"]
+            "-downsample", "3", "--T", "50", "--compute-dtype", "float32",
+            "--remat"]
     got, mute = tconfig.get_args(argv=argv)
     want, _ = jconfig.get_args(argv=argv)
-    # the kernel selectors are mirrored; the rest are TPU-only
-    tpu_only = {"mesh_shape", "remat", "fsdp"}
+    # the kernel selectors and remat are mirrored; the rest are TPU-only
+    tpu_only = {"mesh_shape", "fsdp"}
     # the port reads its data from inside the working directory by default
     assert want.pop("data_root") == "../data/" and got["data_root"] == "./data/"
     assert {k: v for k, v in want.items() if k not in tpu_only} == {
         k: v for k, v in got.items() if k not in ("device", "data_root")}
     assert got["model"] == "dddpm" and got["T"] == 50 and not mute
+    assert got["remat"] is True
 
 
 # ------------------------------------------------------------------ trainer

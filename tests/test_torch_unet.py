@@ -180,3 +180,36 @@ def test_simple_convs_match_jax(jcls, tcls, shape):
         got = mod(torch.from_numpy(x).permute(0, 3, 1, 2))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
                                np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_remat_unet_equals_the_plain_unet_with_dropout():
+    """remat=True (torch.utils.checkpoint around each ResnetBlock under
+    grad) keeps the state_dict keys, and gives the plain UNet's outputs
+    and gradients with dropout 0.3 active: the recompute replays the
+    dropout masks.  Without grad the blocks run as they are."""
+    torch.manual_seed(0)
+    plain = Unet(16, 3, (1, 2), dropout=0.3).train()
+    remat = Unet(16, 3, (1, 2), dropout=0.3, remat=True).train()
+    assert list(remat.state_dict()) == list(plain.state_dict())
+    remat.load_state_dict(plain.state_dict())
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 16, 16)).astype(np.float32))
+    t = torch.tensor([3, 700])
+    outs, grads = [], []
+    for net in (plain, remat):
+        torch.manual_seed(5)
+        out = net(x, t)
+        (out * torch.linspace(-1, 1, out.numel()).view(out.shape)).sum().backward()
+        outs.append(out.detach())
+        grads.append({k: p.grad for k, p in net.named_parameters()})
+    torch.testing.assert_close(outs[1], outs[0])
+    for k, g in grads[0].items():
+        torch.testing.assert_close(grads[1][k], g, msg=k)
+    # dropout is live: another seed gives another output
+    torch.manual_seed(6)
+    with torch.no_grad():
+        assert not torch.allclose(remat(x, t), outs[0])
+    cfg = dict(unet_chan=16, unet_in=3, unet_dims=(1, 2), unet_dropout=0.0,
+               use_pallas_attention=False, remat=True)
+    assert Unet.from_config(cfg).remat and not Unet.from_config(
+        dict(cfg, remat=False)).remat
