@@ -117,6 +117,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    operand, and an int8 unet_chan 160 model's chain steps with Q1 at
    every quantized conv; K4, K5 and K6 at one ragged width each against
    their plain versions.  It prints one {"widths_path": ...} line.
+14. multi-GPU (after phase 13, before phase 10): `python -m
+   torch.distributed.run --standalone --nproc-per-node <cards> -m
+   dddpm_tpu_torch.parallel.dryrun --full` as a subprocess, one NCCL
+   rank per card (world size 1 on one card), at full width: the x3
+   train step of phase 5 through setup_trainer and train_step on the
+   mesh, 3 steps
+   replicated and 3 FSDP-sharded with the counters zeroed before and
+   read after each (K1a/K1b, K2 and K3 at the counts the recon rows
+   predict), the replicated step's params and EMA held against the same
+   steps run without the mesh in the same process (bit for bit at world
+   1, cuDNN's deterministic algorithms in both), the FSDP step against
+   the replicated one; the ms a step of the three step functions over
+   the same 8 steps in turns (plain, replicated, FSDP, and back)
+   and of the two trainers, the kernels and kernel time a step of each
+   step function (torch.profiler), each rank's peak memory; the FSDP
+   checkpoint round trip, bit for bit; the sharded x2
+   bulk sampler (B = 192 over the ranks, the chain cut to 20 steps, the
+   decode, fix_samples) against generate_samples without the mesh, bit
+   for bit at world 1, its imgs/s; the sharded Inception pass (192 + 192
+   images) against one process's.  A non-zero exit fails the script; it
+   prints the subprocess's {"multigpu_path": ...} line.
 
 The last three lines are a JSON object with the kernels' numbers (one
 entry per kernel and path, its launches counted on that path's own run),
@@ -126,6 +147,8 @@ import contextlib
 import functools
 import json
 import os
+import signal
+import subprocess
 import sys
 import time
 from unittest import mock
@@ -2188,6 +2211,56 @@ def phase_widths(results):
     print(json.dumps({"widths_path": out}), flush=True)
 
 
+MULTIGPU_TIMEOUT_S = 600
+
+
+def phase_multigpu():
+    """Phase 14: the sharded paths on one NCCL rank per card, in a torchrun
+    subprocess (see the module docstring); its failure fails the script."""
+    n = torch.cuda.device_count()
+    log(f"phase 14: multi-GPU, {n} rank(s) under NCCL")
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", "-m", "dddpm_tpu_torch.parallel.dryrun",
+           "--full", "--workdir", os.path.join(WORKDIR, "multigpu")]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=MULTIGPU_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)   # torchrun and its ranks
+        proc.communicate()
+        raise
+    wall = time.time() - t0
+    for line in stdout.splitlines():
+        if not line.startswith('{"multigpu_path"'):
+            log(f"  {line}")
+    if proc.returncode:
+        log(stderr[-8000:])
+        raise RuntimeError(f"phase 14 exited {proc.returncode}")
+    path = next(json.loads(line)["multigpu_path"] for line in stdout.splitlines()
+                if line.startswith('{"multigpu_path"'))
+    assert path["world_size"] == n and path["backend"] == "nccl", path
+    for run in ("launches_replicated", "launches_fsdp"):
+        launched = path["train"][run]
+        assert all(launched[k] > 0 for k in ("attn_ctx", "attn_out",
+                                             "convres_fwd", "convres_bwd")), (
+            run, launched)
+    assert path["checkpoint_round_trip"]["exact"], path
+    if n == 1:
+        assert path["train"]["replicated_vs_plain_max_abs"] == {
+            "params": 0.0, "ema": 0.0}, path["train"]
+        assert path["sampler"]["samples_max_abs"] == 0.0, path["sampler"]
+    path["wall_s"] = wall
+    log(f"  phase 14: {wall:.1f} s wall, the subprocess's start included")
+    print(json.dumps({"multigpu_path": path}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2229,6 +2302,7 @@ def main() -> int:
     phase_eval(ckpt_x3, seed_x3)
     phase_int8(results)
     phase_widths(results)
+    phase_multigpu()
     phase_probes(results)
     log(f"chip_smoke: {time.time() - t0:.1f} s after the build started")
 

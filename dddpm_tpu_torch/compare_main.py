@@ -4,6 +4,9 @@ check), printed as one JSON object.
 
     python -m dddpm_tpu_torch.compare_main --batch1 a.npy --batch2 b.npy \
         [--inception-weights npz | --allow-random-inception] [--device cpu]
+
+Under torchrun with more than one process the Inception pass is split
+over the ranks (a mesh); rank 0 prints.
 """
 import argparse
 import json
@@ -13,6 +16,12 @@ import numpy as np
 from dddpm_tpu_torch.evaluation.evaluator import (
     Evaluator,
     require_inception_optin,
+)
+from dddpm_tpu_torch.parallel.mesh import (
+    create_mesh,
+    initialize_distributed,
+    is_main,
+    world_size,
 )
 
 
@@ -35,12 +44,17 @@ def main(argv=None):
     require_inception_optin(args.inception_weights,
                             args.allow_random_inception, "compare_main")
 
+    initialize_distributed(device=args.device)
+
     b1 = np.load(args.batch1, mmap_mode="r")
     b2 = np.load(args.batch2, mmap_mode="r")
-    evaluator = Evaluator(args.inception_weights, device=args.device)
+    mesh = create_mesh() if world_size() > 1 else None
+    evaluator = Evaluator(args.inception_weights, device=args.device,
+                          mesh=mesh)
     metrics = evaluator.evaluate(b1, b2,
                                  prec_recall_subset=args.prec_recall_subset)
-    print(json.dumps(metrics, indent=2))
+    if is_main():
+        print(json.dumps(metrics, indent=2))
     return metrics
 
 

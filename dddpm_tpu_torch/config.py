@@ -2,10 +2,12 @@
 
 The reference's config-dict contract and flags (-m/-d/-e/-bs/-is/-mute/
 -downsample) plus the JAX package's --data-root, --T, --compute-dtype,
---seed, --grad-accum, --prefetch and --remat (the UNet's ResnetBlocks
-rematerialized under grad, models/unet.py).  Its TPU-only flags
-(--mesh-shape, --fsdp, --use-pallas) have no counterpart; --device picks
-the card (the default) or 'cpu' for the plain PyTorch path.  The JAX
+--seed, --grad-accum, --prefetch, --remat (the UNet's ResnetBlocks
+rematerialized under grad, models/unet.py), --mesh-shape and --fsdp
+(the mesh over the run's processes and FSDP-style parameter sharding,
+parallel/).  The config key fsdp_min_size is read as the JAX package
+reads it (default 2**16).  --use-pallas has no counterpart; --device
+picks the card (the default) or 'cpu' for the plain PyTorch path.  The JAX
 package's two kernel selectors are config keys here as there:
 use_pallas_attention ('auto' | True | False, pinned by build_model) and
 use_pallas_resample (True | False); False takes the plain path on the
@@ -59,6 +61,7 @@ CONFIG_MODEL: Dict[str, Dict] = {
 CONFIG_PORT: Dict = {
     "compute_dtype": "bfloat16",  # conv / attention compute dtype
     "grad_accum": 2,              # micro-steps per optimizer step
+    "mesh_shape": None,           # None -> every rank on one 'data' axis
     "seed": 0,
     # the attention block's kernels (K1a/K1b, or K1c): 'auto' = on when
     # the model is built on a CUDA card (models/factory.py pins it)
@@ -67,10 +70,18 @@ CONFIG_PORT: Dict = {
     "use_pallas_resample": True,
     "prefetch": 2,                # host batch-prep prefetch depth (0 = off)
     "remat": False,               # rematerialize UNet ResnetBlocks under grad
+    "fsdp": False,                # shard params/EMA/opt-state over the data axis
     # the AE dDDPM variant's recon branch on the t < t_rec_max rows only
     # (models/dddpm.py:DownsampleDiffusionAutoencoder)
     "recon_compact": True,
 }
+
+
+def parse_mesh_shape(text):
+    """'4,2' -> (4, 2); '' / 'none' / None -> None."""
+    if text is None or str(text).lower() in ("", "none"):
+        return None
+    return tuple(int(x) for x in str(text).split(","))
 
 
 def modify_config(config: Dict, model_config: Dict) -> Dict:
@@ -125,6 +136,12 @@ def get_args(data_names: List[str] = DATASETS,
     parser.add_argument("--seed", default=0, type=int, dest="seed")
     parser.add_argument("--grad-accum", default=2, type=int, dest="grad_accum",
                         help="micro-steps per optimizer step")
+    parser.add_argument("--mesh-shape", default=None, type=parse_mesh_shape,
+                        dest="mesh_shape",
+                        help="mesh shape over the run's processes, e.g. '8' "
+                             "(default: every rank on one data axis)")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="FSDP-style parameter sharding over the data axis")
     parser.add_argument("--prefetch", default=2, type=int,
                         help="background host batch-prep depth (0 disables)")
     parser.add_argument("--remat", action="store_true",

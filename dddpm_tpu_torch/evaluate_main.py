@@ -8,7 +8,10 @@ saved samples against a reference batch, printed as one JSON object.
         [--test-batches N | --skip-test-losses] [--device cpu]
 
 The test losses take the weights generate_main takes (the EMA weights
-when ema_decay > 0).  Runs on the CUDA card unless --device cpu.
+when ema_decay > 0).  Runs on the CUDA card unless --device cpu.  Under
+torchrun with more than one process the Inception pass is split over
+the ranks (a mesh); the test-set VLB stays unsharded, as in the JAX
+package: rank 0 runs it, after the Inception pass, and prints.
 """
 import argparse
 import json
@@ -21,6 +24,12 @@ from dddpm_tpu_torch.evaluation.evaluator import (
 )
 from dddpm_tpu_torch.evaluation.helpers import compute_test_losses
 from dddpm_tpu_torch.generate_main import load_eval_model
+from dddpm_tpu_torch.parallel.mesh import (
+    create_mesh,
+    initialize_distributed,
+    is_main,
+    world_size,
+)
 from dddpm_tpu_torch.utils import paths
 
 
@@ -48,8 +57,20 @@ def main(argv=None):
     args = p.parse_args(argv)
     require_inception_optin(args.inception_weights,
                             args.allow_random_inception, "evaluate_main")
+    initialize_distributed(device=args.device)
+
+    # paths stream in bounded memory (npy mmap / npz chunked decompress);
+    # over several processes the Inception pass is split over a mesh
+    mesh = create_mesh() if world_size() > 1 else None
+    evaluator = Evaluator(args.inception_weights, device=args.device,
+                          mesh=mesh)
+    sample_metrics = evaluator.evaluate(
+        args.reference, args.samples,
+        prec_recall_subset=args.prec_recall_subset)
 
     metrics, timing = {}, {"test_losses_s": None}
+    if not is_main():
+        return sample_metrics, timing
     if not args.skip_test_losses:
         _, process, config = load_eval_model(args.checkpoint, args.device)
         test_loader = get_dataloader(config, False, args.data_root)
@@ -59,12 +80,7 @@ def main(argv=None):
         timing["test_losses_s"] = time.perf_counter() - t0
         metrics["vlb"] = vlb
         metrics["L_simple"] = l_simple
-
-    # paths stream in bounded memory (npy mmap / npz chunked decompress)
-    evaluator = Evaluator(args.inception_weights, device=args.device)
-    metrics.update(evaluator.evaluate(
-        args.reference, args.samples,
-        prec_recall_subset=args.prec_recall_subset))
+    metrics.update(sample_metrics)
 
     print(json.dumps(metrics, indent=2))
     return metrics, timing

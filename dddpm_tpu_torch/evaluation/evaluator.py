@@ -5,7 +5,8 @@ Activations come from the InceptionV3 extractor in batches; statistics
 and the Frechet distance stay host float64; precision / recall run as
 pairwise-distance tiles on the device.  Takes the reference's npy
 artifact format: (n_batches, B, H, W, C) or (N, H, W, C), values in
-[0, 255].  One device: multi-GPU evaluation is not ported.
+[0, 255].  With a mesh the Inception pass is split over the ranks
+(evaluation/inception.py) and every rank computes the same metrics.
 """
 from __future__ import annotations
 
@@ -62,8 +63,9 @@ class Evaluator:
     """Computes all sample-quality metrics against a reference batch."""
 
     def __init__(self, weights_npz: Optional[str] = None, batch_size: int = 64,
-                 device: DeviceLike = None):
-        self.extractor = FeatureExtractor(weights_npz, batch_size, device)
+                 device: DeviceLike = None, mesh=None):
+        self.extractor = FeatureExtractor(weights_npz, batch_size, device,
+                                          mesh)
 
     def read_activations(self, images) -> Dict[str, np.ndarray]:
         """images: array, or .npy/.npz path (streamed in bounded memory)."""

@@ -36,6 +36,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dddpm_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    mesh_coords,
+    shard_batch,
+)
 from dddpm_tpu_torch.utils.device import DeviceLike, full_f32, resolve_device
 
 INCEPTION_SIZE = 299
@@ -367,16 +372,24 @@ def init_params_(model: InceptionV3, seed: int = INIT_SEED) -> InceptionV3:
 # ---------------------------------------------------------- the extractor
 
 class FeatureExtractor:
-    """Batched feature extraction from [0, 255] NHWC images on one device.
+    """Batched feature extraction from [0, 255] NHWC images.
 
     The forward runs in float32 with TF32 off (full_f32): with TF32 the
     card's activations drift from the CPU's by far more than f32
-    rounding.  The tail batch runs at its own size (no padding)."""
+    rounding.  The tail batch runs at its own size (no padding).
+
+    With `mesh` (a 1-D 'data' mesh from parallel.create_mesh) each batch
+    is split over the ranks and every rank returns the one-process
+    arrays (an all-gather of each head): batch_size is rounded up to a
+    multiple of the mesh size, and a tail batch is zero-padded to one,
+    the padding dropped after."""
 
     def __init__(self, weights_npz: Optional[str] = None, batch_size: int = 64,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.device = resolve_device(device)
-        self.batch_size = batch_size
+        self.mesh = mesh
+        n = mesh_coords(mesh)[1]
+        self.batch_size = -(-batch_size // n) * n
         self.model = init_params_(InceptionV3())
         self.has_real_weights = False
         weights_npz = weights_npz or os.environ.get("INCEPTION_WEIGHTS_NPZ")
@@ -406,8 +419,14 @@ class FeatureExtractor:
         from dddpm_tpu_torch.evaluation.io import image_batch_stream
 
         outs = {"pool3": [], "spatial": [], "softmax": []}
+        n = mesh_coords(self.mesh)[1]
         for batch in image_batch_stream(images, self.batch_size):
-            res = self.features(batch)
+            count = len(batch)
+            if count % n:
+                batch = np.concatenate([batch, np.zeros(
+                    (n - count % n,) + batch.shape[1:], batch.dtype)])
+            res = self.features(shard_batch(batch, self.mesh))
             for k in outs:
-                outs[k].append(res[k].cpu().numpy())
+                outs[k].append(all_gather_rows(res[k], self.mesh)[:count]
+                               .cpu().numpy())
         return {k: np.concatenate(v) for k, v in outs.items()}

@@ -17,6 +17,13 @@ W8A8 serving mode (ops/quant.py), loads the same weights and calibrates
 the activation scales for this checkpoint (quantize.py) before
 sampling.  The JAX script's --chain-segments (a TPU-runtime workaround)
 and --prng-impl have no counterpart.
+
+Under torchrun (one process per card) the entry samples on a mesh:
+each rank runs B / N rows of every batch, the calibrated activation
+scales are rank 0's, and rank 0 prints and writes the same npy files
+one process writes:
+
+    torchrun --nproc-per-node N -m dddpm_tpu_torch.generate_main ...
 """
 import argparse
 import json
@@ -24,7 +31,14 @@ import os
 
 import numpy as np
 
+from dddpm_tpu_torch.models.blocks import quant_buffers
 from dddpm_tpu_torch.models.factory import build_model
+from dddpm_tpu_torch.parallel.mesh import (
+    create_mesh,
+    initialize_distributed,
+    is_main,
+    replicate,
+)
 from dddpm_tpu_torch.quantize import load_float_weights, maybe_calibrate
 from dddpm_tpu_torch.sample import generate_samples
 from dddpm_tpu_torch.train import checkpoint as ckpt
@@ -80,6 +94,9 @@ def main(argv=None):
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the plain PyTorch path)")
     args = p.parse_args(argv)
+    initialize_distributed(device=args.device)
+    mesh = create_mesh()
+    say = print if is_main() else (lambda *a, **k: None)
 
     quant = None if args.quant_conv == "none" else args.quant_conv
     net, process, config = load_eval_model(args.checkpoint, args.device,
@@ -88,25 +105,30 @@ def main(argv=None):
         maybe_calibrate(config, net, process,
                         batch_size=args.quant_calib_batch,
                         mode=args.quant_calib, seed=args.seed + 1)
-        print(f"conv_quant={args.quant_conv}: activation scales "
-              f"calibrated ({args.quant_calib} mode)")
+        # every rank quantizes with rank 0's scales
+        replicate(quant_buffers(net).values(), mesh)
+        say(f"conv_quant={args.quant_conv}: activation scales "
+            f"calibrated ({args.quant_calib} mode)")
     step = ckpt.load_step(args.checkpoint)
 
     name = os.path.basename(os.path.normpath(args.checkpoint))
-    print(f"\nGenerating {args.fid_samples} samples from checkpoint {name}.")
-    print(f"Trained for {step} steps with configuration dict:")
-    print(json.dumps({k: str(v) if isinstance(v, tuple) else v
-                      for k, v in config.items()}, indent=4) + "\n")
+    say(f"\nGenerating {args.fid_samples} samples from checkpoint {name}.")
+    say(f"Trained for {step} steps with configuration dict:")
+    say(json.dumps({k: str(v) if isinstance(v, tuple) else v
+                    for k, v in config.items()}, indent=4) + "\n")
 
     samples, latents, timing = generate_samples(
         process, args.seed, args.fid_samples, args.batch_size,
-        ddim_steps=args.ddim_steps, ddim_eta=args.ddim_eta)
+        ddim_steps=args.ddim_steps, ddim_eta=args.ddim_eta,
+        progress=is_main(), mesh=mesh)
 
-    print(f"Using batch size {args.batch_size}")
-    print(f"Total time: {timing['total_s']}")
-    print(f"Sample time: {timing['per_sample_s']}")
-    print(f"Batch time: {timing['per_batch_s']}")
-    print(f"Throughput: {timing['imgs_per_sec']:.2f} imgs/sec")
+    say(f"Using batch size {args.batch_size}")
+    say(f"Total time: {timing['total_s']}")
+    say(f"Sample time: {timing['per_sample_s']}")
+    say(f"Batch time: {timing['per_batch_s']}")
+    say(f"Throughput: {timing['imgs_per_sec']:.2f} imgs/sec")
+    if not is_main():
+        return samples, latents, timing
 
     os.makedirs(args.out, exist_ok=True)
     save_path = os.path.join(args.out, name)

@@ -1,12 +1,21 @@
-"""The training loop on one card (port of dddpm_tpu/train/trainer.py).
+"""The training loop (port of dddpm_tpu/train/trainer.py).
 
 Gradient accumulation x2, the optax-rule clip at 1.0, Adam, EMA (start
 2000, every 10), per-step 'train_obj' (+ 'train_latent' / 'train_recon'
 for dDDPM) logging, checkpoints and sample / recon image grids every
 10k steps, the losses JSON at finalize.  Metrics stay device tensors
-until the log buffer flushes.  One card, no mesh and no FSDP (multi-GPU
-is ROADMAP item 13).  Batches are gathered as uint8 on a background
-thread, copied to the card and transformed there.
+until the log buffer flushes.  Batches are gathered as uint8 on a
+background thread, copied to the card and transformed there.
+
+In a process group (torchrun, parallel/mesh.py) the trainer runs on a
+mesh: batch_size is the global batch, every rank reads the same loader
+stream and keeps its own rows before the copy to the card; parameters
+are replicated (broadcast from rank 0), or FSDP-sharded with config
+'fsdp'.  The compact recon branch stays on: in eager PyTorch it forces
+no collective, and the mean over ranks of each rank's objective is the
+global one.  Rank 0 alone writes the logs, the image grids and the
+checkpoints; every rank enters every collective, the checkpoint's and
+the preemption handler's included.
 """
 from __future__ import annotations
 
@@ -21,6 +30,13 @@ from dddpm_tpu_torch.data.pipeline import get_dataloader, prefetch, to_float
 from dddpm_tpu_torch.models.ddpm import fold_seed
 from dddpm_tpu_torch.models.factory import build_model
 from dddpm_tpu_torch.ops.math import min_max_norm_image
+from dddpm_tpu_torch.parallel import fsdp
+from dddpm_tpu_torch.parallel.mesh import (
+    batch_sharding,
+    broadcast_object,
+    create_mesh,
+    is_main,
+)
 from dddpm_tpu_torch.train import checkpoint as ckpt
 from dddpm_tpu_torch.train.state import (
     create_optimizer,
@@ -44,8 +60,13 @@ class Trainer:
                  wandb_project: str = "ddpm-test",
                  seed: Optional[int] = 0, workdir: Optional[str] = None,
                  n_samples: int = 25, device: DeviceLike = None):
-        self.seed = seed_everything(seed)
         self.device = resolve_device(device)
+        # mesh: the batch split over 'data'; params replicated, or
+        # FSDP-sharded over the data axis when config['fsdp'] is set
+        self.mesh = create_mesh(config.get("mesh_shape"))
+        self.rows = batch_sharding(self.mesh, config["batch_size"])
+        self.is_main = is_main()
+        self.seed = broadcast_object(seed_everything(seed), self.mesh)
         self.mute = mute
         # under utils/paths.py's directories unless a workdir is given
         self.logging_dir = (paths.LOGGING_DIR if workdir is None
@@ -78,8 +99,14 @@ class Trainer:
         self.is_downsampled = config["model"] == "dddpm"
         self.name = f"{config['model']}_{config['T']}"
         self.grad_accum = int(config.get("grad_accum", 2))
-        self.opt = create_optimizer(self.net, config["lr"])
-        self.state = create_train_state(self.net, self.opt, self.seed)
+
+        self.state = create_train_state(
+            self.net, create_optimizer(self.net, config["lr"]), self.seed,
+            self.mesh)
+        if config.get("fsdp"):
+            self.state = fsdp.shard_state_fsdp(
+                self.state, self.mesh, min_size=int(config.get(
+                    "fsdp_min_size", fsdp.DEFAULT_MIN_SIZE)))
         ema_decay = config.get("ema_decay", 0.995)
         self.use_ema = ema_decay > 0
         self._step_fn = make_train_step(self.process, self.grad_accum,
@@ -103,7 +130,8 @@ class Trainer:
         self.flush_every = 200
         self.train_losses = []
         self._metric_buffer = []
-        self.run_id = config.get("wandb_id") or generate_run_id()
+        self.run_id = config.get("wandb_id") or broadcast_object(
+            generate_run_id(), self.mesh)
         config["wandb_id"] = self.run_id
         self.checkpoint_dir = os.path.join(
             paths.CHECKPOINT_DIR if workdir is None
@@ -119,6 +147,10 @@ class Trainer:
     def step(self) -> int:
         return self.state.step
 
+    @property
+    def opt(self):
+        return self.state.opt
+
     def save_checkpoint(self):
         ckpt.save_checkpoint(self.checkpoint_dir, self.state, self.config,
                              self.train_losses)
@@ -133,20 +165,31 @@ class Trainer:
     @contextlib.contextmanager
     def eval_weights(self):
         """The net in eval mode with the EMA weights (when kept), under
-        no_grad; the training weights and mode come back after."""
+        no_grad; the training weights and mode come back after.  Under
+        FSDP the sharded ones are gathered (every rank enters) and
+        released after."""
         was_training = self.net.training
-        params = list(self.state.params.values())
+        layout = self.state.fsdp
+        source = self.state.ema_params if self.use_ema else self.state.params
+        # the net's own parameters that the EMA overwrites in place
+        names = [k for k in self.state.params
+                 if layout is None or k not in layout.dims]
+        params = [self.state.params[k] for k in names]
         backup = None
         with torch.no_grad():
-            if self.use_ema:
+            if layout is not None:
+                fsdp.gather_params(self.state, source)
+            if self.use_ema and params:
                 backup = [p.detach().clone() for p in params]
-                torch._foreach_copy_(params, list(self.state.ema_params.values()))
+                torch._foreach_copy_(params, [source[k] for k in names])
             self.net.eval()
             try:
                 yield
             finally:
                 if backup is not None:
                     torch._foreach_copy_(params, backup)
+                if layout is not None:
+                    fsdp.release_params(self.state)
                 self.net.train(was_training)
 
     def sample(self, seed: Optional[int] = None):
@@ -170,22 +213,26 @@ class Trainer:
         else:
             images = {"sample": self.sample(),
                       "recon": self.recon(self.val_batch)}
-        images = {k: min_max_norm_image(v.float()).cpu().numpy()
-                  for k, v in images.items()}
-        self.logger.log_images(images, self.step, nrow=self.n_rows)
+        if self.is_main:
+            images = {k: min_max_norm_image(v.float()).cpu().numpy()
+                      for k, v in images.items()}
+            self.logger.log_images(images, self.step, nrow=self.n_rows)
 
     # ---------------------------------------------------------------- loop
 
     def _host_batches(self):
         """Infinite stream of (accum, B, H, W, C) uint8 batches and their
-        flip masks, pinned for an asynchronous copy to the card."""
+        flip masks, pinned for an asynchronous copy to the card: on a
+        mesh, the rank's rows of the global batch."""
         it = self.train_loader.cycle_raw()
         pin = self.device.type == "cuda"
         while True:
             items = [next(it) for _ in range(self.grad_accum)]
-            images = torch.from_numpy(np.stack([i[0] for i in items]))
+            images = torch.from_numpy(np.stack([i[0][self.rows]
+                                                for i in items]))
             flips = (None if items[0][1] is None else
-                     torch.from_numpy(np.stack([i[1] for i in items])))
+                     torch.from_numpy(np.stack([i[1][self.rows]
+                                                for i in items])))
             if pin:
                 images = images.pin_memory()
             yield images, flips
@@ -213,12 +260,15 @@ class Trainer:
             step = upto_step - len(self._metric_buffer) + offset + 1
             row = {k: float(v) for k, v in metrics.items()}
             self.train_losses.append(row["train_obj"])
-            self.logger.log(row, step)
+            if self.is_main:
+                self.logger.log(row, step)
         self._metric_buffer = []
-        self.logger.flush()
+        if self.is_main:
+            self.logger.flush()
 
     def _install_preemption_handler(self):
-        """Checkpoint on SIGTERM/SIGINT, then exit."""
+        """Checkpoint on SIGTERM/SIGINT, then exit (torchrun signals every
+        rank, and each enters the checkpoint's collectives)."""
         import signal
 
         def handler(signum, frame):
@@ -245,22 +295,24 @@ class Trainer:
             if is_log:
                 self.save_checkpoint()
                 self.log_images()
-                if not self.mute:
+                if not self.mute and self.is_main:
                     stats = self.timer.stats()
                     print(f"step {step}: train_obj="
                           f"{self.train_losses[-1]:.4f} "
                           f"imgs/sec={stats.get('items_per_sec', 0):.1f}")
 
     def init_logging(self):
-        self.logger = RunLogger(self.project, self.config,
-                                self.logging_dir,
-                                self.run_id, mute=self.mute)
+        if self.is_main:
+            self.logger = RunLogger(self.project, self.config,
+                                    self.logging_dir,
+                                    self.run_id, mute=self.mute)
 
     def finalize(self):
         self._flush_metrics(self.step)
         self.save_checkpoint()
-        self.logger.finish()
-        if not self.mute:
+        if self.is_main:
+            self.logger.finish()
+        if not self.mute and self.is_main:
             print(f"Training of {self.name} completed!")
 
     def train(self):

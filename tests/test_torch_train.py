@@ -305,17 +305,17 @@ def test_loader_matches_jax():
 def test_config_matches_jax_without_tpu_flags():
     argv = ["-d", "synthetic", "-e", "7", "-bs", "8", "-is", "16",
             "-downsample", "3", "--T", "50", "--compute-dtype", "float32",
-            "--remat"]
+            "--remat", "--mesh-shape", "2", "--fsdp"]
     got, mute = tconfig.get_args(argv=argv)
     want, _ = jconfig.get_args(argv=argv)
-    # the kernel selectors and remat are mirrored; the rest are TPU-only
-    tpu_only = {"mesh_shape", "fsdp"}
+    # the kernel selectors, remat, the mesh shape and fsdp are mirrored;
     # the port reads its data from inside the working directory by default
     assert want.pop("data_root") == "../data/" and got["data_root"] == "./data/"
-    assert {k: v for k, v in want.items() if k not in tpu_only} == {
-        k: v for k, v in got.items() if k not in ("device", "data_root")}
+    assert want == {k: v for k, v in got.items()
+                    if k not in ("device", "data_root")}
     assert got["model"] == "dddpm" and got["T"] == 50 and not mute
     assert got["remat"] is True
+    assert got["mesh_shape"] == (2,) and got["fsdp"] is True
 
 
 # ------------------------------------------------------------------ trainer
