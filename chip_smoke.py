@@ -104,9 +104,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 13. the widths past the tuned kernels' (after phase 12, before phase
    10): K2's and K3's width-general route (csrc/convres_general.cu)
    against their plain versions at (cm, cio) = (64, 128), (96, 192),
-   (128, 256) and (32, 96), B = 2, 128^2 (K2 with no scaling, 'up' and
-   'down'), bf16 and f32, each timed eager beside its bound, and K3's
-   bits equal across two launches at cm 128; the x2 sampling path at
+   (128, 256), (32, 96) and (96, 160), B = 2, 128^2 (K2 with no
+   scaling, 'up' and 'down'), bf16 and f32, each timed eager beside its
+   bound and cuDNN doing the block's convs alone (bf16, channels_last; a
+   yardstick, never called by the port), and K3's bits equal across two
+   launches at cm 128 (the route's ptxas lines first: bf16 on the tensor
+   cores, f32 on FMA, no spill allowed); the x2 sampling path at
    d_chans 128 (generate_samples, 2 chain steps and the decode, B = 8)
    with the counters zeroed: K2 general at each of the upsampler's three
    fused blocks; one x3 train step at d_chans 128 (B = 8 x accumulation
@@ -1830,9 +1833,10 @@ def phase_int8(results):
 
 # phase 13: the widths past the tuned kernels'.  (cm, cio) of K2/K3's
 # width-general route (csrc/convres_general.cu) held against the plain
-# versions: the ConvResNet blocks of d_chans 128, 192 and 256, and cm 32
-# at a cio the tuned kernels do not take
-GENERAL_WIDTHS = [(64, 128), (96, 192), (128, 256), (32, 96)]
+# versions: the ConvResNet blocks of d_chans 128, 192 and 256, cm 32 at a
+# cio the tuned kernels do not take, and cm 96 with cio 160 (every N ends
+# in a half-full 64-channel tile)
+GENERAL_WIDTHS = [(64, 128), (96, 192), (128, 256), (32, 96), (96, 160)]
 D128 = dict(c=128, cm=64)      # a d_chans 128 ConvResNet block
 B_D128 = B_TRAIN               # the d_chans 128 train step's batch (32)
 REC_D128 = 4                   # its recon rows per micro-batch (D128_T)
@@ -1861,10 +1865,54 @@ PER[("int8_conv", "x2_sample_int8_c160")] = (
     + "), on channels_last operands, each timed alone")
 
 
+_CUDNN_MS: dict = {}
+
+
+def cudnn_block_ms(bsz, hw, c, cm, backward: bool) -> float:
+    """The yardstick beside K2 / K3 general (the port never calls it):
+    cuDNN doing the block's convs alone at the same shapes, bf16,
+    channels_last, timed eager like the kernel.  Forward: F.conv2d x4;
+    backward: the three recompute convs (F.conv2d), the four data
+    gradients (torch.nn.grad.conv2d_input) and the four weight gradients
+    (torch.nn.grad.conv2d_weight)."""
+    key = (bsz, hw, c, cm, backward)
+    if key in _CUDNN_MS:
+        return _CUDNN_MS[key]
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    cl = torch.channels_last
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+    x = r(bsz, c, hw, hw).contiguous(memory_format=cl)
+    m = r(bsz, cm, hw, hw).contiguous(memory_format=cl)
+    ws = [r(cm, c, 1, 1), r(cm, cm, 3, 3), r(cm, cm, 3, 3), r(c, cm, 1, 1)]
+    ws = [w.contiguous(memory_format=cl) for w in ws]
+    pads = [0, 1, 1, 0]
+    ins = [x, m, m, m]          # each conv's input
+    outs = [m, m, m, x]         # its output (the gradient's shape)
+    grad = torch.nn.grad
+
+    def fwd():
+        h = x
+        for w, pad in zip(ws, pads):
+            h = F.conv2d(h, w, padding=pad)
+        return h
+
+    def bwd():
+        for w, pad, i in zip(ws[:3], pads, ins):
+            F.conv2d(i, w, padding=pad)
+        for w, pad, i, o in zip(ws, pads, ins, outs):
+            grad.conv2d_input(i.shape, w, o, padding=pad)
+            grad.conv2d_weight(i, w.shape, o, padding=pad)
+
+    with torch.no_grad():
+        ms = _CUDNN_MS[key] = cuda_ms(bwd if backward else fwd, 3)
+    return ms
+
+
 def general_case(cm, c, dtype, gen, scale, bsz=2, hw=128):
     """K2's general route against reference_impl at one width and
     scaling (residual), timed eager beside the plain version and its
-    bound; (ms, plain_ms, bound_ms, bound_by, err, cost)."""
+    bound, and replayed from a CUDA graph (its kernels without the host's
+    gaps); (ms, plain_ms, bound_ms, bound_by, err, cost, graph_ms)."""
     args = convres_inputs(hw, hw, dtype, gen, bsz=bsz, c=c, cm=cm)
     run = lambda: cr.fused_convres_block(*args, residual=True, scale=scale)
     plain = lambda: cr.reference_impl(*args, residual=True, scale=scale)
@@ -1875,14 +1923,15 @@ def general_case(cm, c, dtype, gen, scale, bsz=2, hw=128):
         err = check_close(f"K2 general cm {cm} cio {c} B={bsz} {hw}^2 scale={scale} "
                           f"{dtype}", got, plain(), dtype, quiet=True)
         ms, plain_ms = cuda_ms(run, 3), cuda_ms(plain, 3)
+        gms = graph_ms(run, 3)
     cost = cr.cost(bsz, hw, hw, c, args[0].element_size(), scale, cm)
     bnd, by = bound_ms(cost, dtype)
-    return ms, plain_ms, bnd, by, err, cost
+    return ms, plain_ms, bnd, by, err, cost, gms
 
 
 def general_bwd_case(cm, c, dtype, gen, bsz=2, hw=128):
     """K3's general route against backward_reference (residual), timed
-    the same way; (ms, plain_ms, bound_ms, bound_by, err, cost)."""
+    the same way; (ms, plain_ms, bound_ms, bound_by, err, cost, graph_ms)."""
     args = convres_inputs(hw, hw, dtype, gen, bsz=bsz, c=c, cm=cm)
     dy = torch.randn((bsz, hw, hw, c), generator=gen, device="cuda").to(dtype)
     before = cr.LAUNCHES["convres_bwd_general"]
@@ -1895,10 +1944,11 @@ def general_bwd_case(cm, c, dtype, gen, bsz=2, hw=128):
     del got, want
     run = lambda: cr._bwd_kernel(*args, dy, True)
     ms = cuda_ms(run, 2)
+    gms = graph_ms(run, 2)
     plain_ms = cuda_ms(lambda: cr.backward_reference(*args, dy, True), 2)
     cost = cr.cost_bwd(bsz, hw, hw, c, args[0].element_size(), cm)
     bnd, by = bound_ms(cost, dtype)
-    return ms, plain_ms, bnd, by, err, cost
+    return ms, plain_ms, bnd, by, err, cost, gms
 
 
 def phase_general_kernels() -> dict:
@@ -1907,25 +1957,37 @@ def phase_general_kernels() -> dict:
     and f32, each timed eager beside the plain version and its bound;
     then two K3 launches at cm 128 give the same bits.  The route's
     ptxas lines first (no spill allowed)."""
-    ptxas_check("convres_general", "conv_gemm")
-    assert any("conv_wgrad" in k["kernel"] for k in _build.ptxas_report("convres_general"))
+    # bf16 on the tensor cores (conv1x1_mma, conv3x3_mma, wgrad1x1_mma,
+    # wgrad3x3_mma), f32 on the FMA kernels (conv_gemm, conv_wgrad); none
+    # spills
+    ptxas_check("convres_general", "conv1x1_mma")
+    names = [k["kernel"] for k in _build.ptxas_report("convres_general")]
+    for kernel in ("conv3x3_mma", "wgrad1x1_mma", "wgrad3x3_mma", "conv_gemmIf",
+                   "conv_wgradIf"):
+        assert any(kernel in n for n in names), (kernel, names)
     gen = torch.Generator(device="cuda").manual_seed(16)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         for cm, c in GENERAL_WIDTHS:
             for scale in (None, "up", "down"):
-                ms, pms, bnd, by, err, _ = general_case(cm, c, dtype, gen, scale)
+                ms, pms, bnd, by, err, _, gms = general_case(cm, c, dtype, gen, scale)
+                lib = cudnn_block_ms(2, 128, c, cm, False)
                 out[f"K2 cm{cm} cio{c} {scale} {dtype}"] = {
-                    "ms": ms, "plain_ms": pms, "bound_ms": bnd, "max_abs_err": err}
+                    "ms": ms, "graph_ms": gms, "plain_ms": pms, "bound_ms": bnd,
+                    "max_abs_err": err, "library_ms": lib}
                 log(f"  K2 general cm {cm} cio {c} scale={scale} {dtype}: kernel "
-                    f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bnd:.4f} ms ({by}, "
-                    f"{bnd / ms:.1%}), max abs err {err:.3e}")
-            ms, pms, bnd, by, err, _ = general_bwd_case(cm, c, dtype, gen)
+                    f"{ms:.3f} ms ({gms:.3f} from a CUDA graph), plain {pms:.3f} ms, "
+                    f"bound {bnd:.4f} ms ({by}, {bnd / gms:.1%}), cuDNN's 4 convs bf16 "
+                    f"{lib:.3f} ms, max abs err {err:.3e}")
+            ms, pms, bnd, by, err, _, gms = general_bwd_case(cm, c, dtype, gen)
+            lib = cudnn_block_ms(2, 128, c, cm, True)
             out[f"K3 cm{cm} cio{c} {dtype}"] = {
-                "ms": ms, "plain_ms": pms, "bound_ms": bnd, "max_abs_err": err}
-            log(f"  K3 general cm {cm} cio {c} {dtype}: kernel {ms:.3f} ms, plain "
-                f"{pms:.3f} ms, bound {bnd:.4f} ms ({by}, {bnd / ms:.1%}); 9 "
-                f"gradients ok, max abs err {err:.3e}")
+                "ms": ms, "graph_ms": gms, "plain_ms": pms, "bound_ms": bnd,
+                "max_abs_err": err, "library_ms": lib}
+            log(f"  K3 general cm {cm} cio {c} {dtype}: kernel {ms:.3f} ms ({gms:.3f} "
+                f"from a CUDA graph), plain {pms:.3f} ms, bound {bnd:.4f} ms ({by}, "
+                f"{bnd / gms:.1%}), cuDNN's 11 convs bf16 {lib:.3f} ms; 9 gradients ok, "
+                f"max abs err {err:.3e}")
             torch.cuda.empty_cache()
     args = convres_inputs(64, 64, torch.bfloat16, gen, bsz=2, c=256, cm=128)
     dy = torch.randn((2, 64, 64, 256), generator=gen, device="cuda").to(torch.bfloat16)
@@ -1964,18 +2026,22 @@ def phase_d128_decode(results) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(17)
     for h, w, scale in sorted(set(CONVRES_DECODE)):
         n = CONVRES_DECODE.count((h, w, scale))
-        ms, pms, bnd, by, err, cost = general_case(
+        ms, pms, bnd, by, err, cost, gms = general_case(
             D128["cm"], D128["c"], torch.bfloat16, gen, scale, bsz=B, hw=h)
+        lib = cudnn_block_ms(B, h, D128["c"], D128["cm"], False)
         log(f"    K2 general {h}^2 scale={scale} B={B} bf16 (x{n} a decode): "
-            f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bnd:.4f} ms ({by})")
+            f"kernel {ms:.3f} ms ({gms:.3f} from a CUDA graph), plain {pms:.3f} ms, "
+            f"bound {bnd:.4f} ms ({by}), cuDNN's 4 convs {lib:.3f} ms")
         accumulate(results, "convres_fwd_general", "x2_sample_d128", n, ms, pms,
-                   bnd, cost, err)
+                   bnd, cost, err, library_ms=lib, graph_ms=gms)
     r = results[("convres_fwd_general", "x2_sample_d128")]
     r["launches"] = launched["convres_fwd_general"]
-    log(f"  K2 general per d_chans 128 x2 decode (bf16): kernel {r['ms']:.3f} ms, "
-        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
+    log(f"  K2 general per d_chans 128 x2 decode (bf16): kernel {r['ms']:.3f} ms "
+        f"({r['graph_ms']:.3f} from CUDA graphs), plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.4f} ms, cuDNN's convs {r['library_ms']:.3f} ms")
     return {"launches": launched["convres_fwd_general"], "sampling_s": timing["total_s"],
-            "k2_general_ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"]}
+            "k2_general_ms": r["ms"], "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "library_ms": r["library_ms"]}
 
 
 def phase_d128_train(results) -> dict:
@@ -2064,27 +2130,31 @@ def phase_d128_train(results) -> dict:
     for bsz, blocks in ((REC_D128, TRAIN_BLOCKS), (B_D128, TRAIN_BLOCKS[:3])):
         for (h, w, scale), n in blocks:
             n = 2 if (bsz == B_D128 and scale is None) else n
-            ms, pms, bnd, by, err, cost = general_case(
+            ms, pms, bnd, by, err, cost, gms = general_case(
                 D128["cm"], D128["c"], torch.bfloat16, gen, scale, bsz=bsz, hw=h)
-            log(f"    K2 general B={bsz} {h}^2 scale={scale} bf16: kernel {ms:.3f} ms, "
-                f"plain {pms:.3f} ms, bound {bnd:.4f} ms ({by}), {2 * n} launches a "
-                f"train step")
+            lib = cudnn_block_ms(bsz, h, D128["c"], D128["cm"], False)
+            log(f"    K2 general B={bsz} {h}^2 scale={scale} bf16: kernel {ms:.3f} ms "
+                f"({gms:.3f} from a CUDA graph), plain {pms:.3f} ms, bound {bnd:.4f} "
+                f"ms ({by}), cuDNN's 4 convs {lib:.3f} ms, {2 * n} launches a train step")
             accumulate(results, "convres_fwd_general", "x3_train_d128", 2 * n, ms,
-                       pms, bnd, cost, err)
+                       pms, bnd, cost, err, library_ms=lib, graph_ms=gms)
     for (h, w, scale), n in TRAIN_BLOCKS:
-        ms, pms, bnd, by, err, cost = general_bwd_case(
+        ms, pms, bnd, by, err, cost, gms = general_bwd_case(
             D128["cm"], D128["c"], torch.bfloat16, gen, bsz=REC_D128, hw=h)
-        log(f"    K3 general B={REC_D128} {h}^2 ({scale}) bf16: kernel {ms:.3f} ms, "
-            f"plain {pms:.3f} ms, bound {bnd:.4f} ms ({by}), {2 * n} launches a "
-            f"train step")
+        lib = cudnn_block_ms(REC_D128, h, D128["c"], D128["cm"], True)
+        log(f"    K3 general B={REC_D128} {h}^2 ({scale}) bf16: kernel {ms:.3f} ms "
+            f"({gms:.3f} from a CUDA graph), plain {pms:.3f} ms, bound {bnd:.4f} ms "
+            f"({by}), cuDNN's 11 convs {lib:.3f} ms, {2 * n} launches a train step")
         accumulate(results, "convres_bwd_general", "x3_train_d128", 2 * n, ms, pms,
-                   bnd, cost, err)
+                   bnd, cost, err, library_ms=lib, graph_ms=gms)
     for name in ("convres_fwd_general", "convres_bwd_general"):
         r = results[(name, "x3_train_d128")]
         r["launches"] = launches_d128[name]
-        log(f"  {name} per d_chans 128 x3 train step (bf16): kernel {r['ms']:.2f} ms, "
-            f"plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.3f} ms")
-        out[name] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "launches")}
+        log(f"  {name} per d_chans 128 x3 train step (bf16): kernel {r['ms']:.2f} ms "
+            f"({r['graph_ms']:.2f} from CUDA graphs), plain {r['plain_ms']:.2f} ms, "
+            f"bound {r['bound_ms']:.3f} ms, cuDNN's convs {r['library_ms']:.2f} ms")
+        out[name] = {k: r[k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                       "launches", "library_ms")}
     torch.cuda.empty_cache()
     return out
 

@@ -78,10 +78,11 @@ def test_a_header_edit_names_another_library(build_dir, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", ["conv3x3", "winograd", "probe_cmajor_conv",
                                   "convres_fwd", "convres_bwd", "attention_block",
-                                  "int8_conv"])
+                                  "int8_conv", "convres_general"])
 def test_tensor_core_kernels_share_one_copy_of_the_fragment_helpers(name):
-    """K5, K6, P4, K2, K3, K1a/K1b and Q1 include csrc/mma_sm90.cuh and
-    define none of its helpers themselves, so they cannot drift apart."""
+    """K5, K6, P4, K2, K3, K1a/K1b, Q1 and K2/K3's width-general route
+    include csrc/mma_sm90.cuh and define none of its helpers themselves,
+    so they cannot drift apart."""
     source = (_build.CSRC / f"{name}.cu").read_text()
     assert '#include "mma_sm90.cuh"' in source
     for helper in ("cp_async16(", "ldmatrix_x4(", "ldmatrix_x4_trans(",
@@ -131,16 +132,59 @@ def test_wgmma_kernels_share_one_copy_of_the_hopper_helpers(name):
     assert "asm" not in source
 
 
-@pytest.mark.parametrize("name", ["conv3x3", "convres_fwd"])
+@pytest.mark.parametrize("name", ["conv3x3", "convres_fwd", "convres_general"])
 def test_mish_kernels_share_one_copy_of_the_fast_mish(name):
-    """K5 and K2 include csrc/mish_sm90.cuh (mish by one ex2 and one rcp)
-    and define neither it nor its two instructions' helpers themselves."""
+    """K5, K2 and K2/K3's width-general route include csrc/mish_sm90.cuh
+    (mish by one ex2 and one rcp) and define neither it nor its two
+    instructions' helpers themselves."""
     source = (_build.CSRC / f"{name}.cu").read_text()
     assert '#include "mish_sm90.cuh"' in source
     for helper in ("mish(", "ex2_ftz(", "rcp_ftz("):
         assert f"float {helper}" not in source, helper
     for slow in ("expf(", "log1pf(", "tanhf("):
         assert slow not in source, slow
+
+
+def _body(source: str, head: str) -> str:
+    """The text of the function that starts at `head`, to its closing
+    brace at the start of a line."""
+    start = source.index(head)
+    return source[start:source.index("\n}\n", start)]
+
+
+def test_general_route_runs_bf16_on_the_tensor_cores():
+    """csrc/convres_general.cu launches its FMA kernels (conv_gemm,
+    conv_wgrad) for f32 only, from the overloads that take f32, and its
+    tensor-core kernels (conv1x1_mma, conv3x3_mma, wgrad1x1_mma,
+    wgrad3x3_mma) for bf16, from those that take bf16: their products
+    are mma.sync on slabs a cp.async ring fills, the FMA kernels' fmaf
+    loops."""
+    source = (_build.CSRC / "convres_general.cu").read_text()
+    for launch, takes in (("conv_gemm<float><<<", "ConvArgs<float>& a"),
+                          ("conv1x1_mma<<<", "ConvArgs<bf16>& a"),
+                          ("conv3x3_mma<<<", "ConvArgs<bf16>& a"),
+                          ("conv_wgrad<float><<<", "const float* in"),
+                          ("wgrad1x1_mma<<<", "const bf16* in"),
+                          ("wgrad3x3_mma<<<", "const bf16* in")):
+        assert source.count(launch) == 1, launch
+        head = source[:source.index(launch)]
+        assert takes in head[head.rindex("\ncudaError_t "):], launch
+    for kernel in ("conv_gemm<bf16>", "conv_wgrad<bf16>", "conv_gemm<T><<<",
+                   "conv_wgrad<T><<<"):
+        assert kernel not in source, kernel
+    for head, ring in (("conv1x1_mma(const ConvArgs<bf16> a) {", "STAGES"),
+                       ("conv3x3_mma(const ConvArgs<bf16> a) {", "STAGES3"),
+                       ("wgrad1x1_mma(const bf16* __restrict__ in", "STAGES"),
+                       ("wgrad3x3_mma(const bf16* __restrict__ in", "STAGES3")):
+        body = _body(source, head)
+        for op in ("mma_bf16(", "ldmatrix_x4", "cp_async16(",
+                   f"cp_async_wait<{ring} - 2>()"):
+            assert op in body, (head, op)
+        assert "fmaf(" not in body, head
+    for head in ("conv_gemm(const ConvArgs<T> a) {",
+                 "conv_wgrad(const T* __restrict__ in"):
+        body = _body(source, head)
+        assert "fmaf(" in body and "mma_bf16(" not in body, head
 
 
 @pytest.mark.parametrize("name", ["convres_fwd", "convres_bwd"])

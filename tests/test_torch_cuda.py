@@ -256,13 +256,17 @@ def test_convres_autograd_on_card_matches_plain(card, scale):
 
 
 # (cm, cio) of the width-general route (csrc/convres_general.cu): the
-# ConvResNet blocks of d_chans 128, 192 and 256, and cm 32 at a cio the
-# tuned kernels do not take
-GENERAL_WIDTHS = [(64, 128), (96, 192), (128, 256), (32, 96)]
-# (2, 24, 40): 1920 pixels, 30 whole 64-pixel tiles; (1, 70, 66): 4620,
-# the last tile partial and rows that do not start tiles; at cio 96 and
+# ConvResNet blocks of d_chans 128, 192 and 256, cm 32 at a cio the
+# tuned kernels do not take, and cm 96 with cio 160, whose every N (96,
+# 160) ends in a half-full 64-channel tile
+GENERAL_WIDTHS = [(64, 128), (96, 192), (128, 256), (32, 96), (96, 160)]
+# (2, 24, 40): 1920 pixels, 15 whole 128-pixel bf16 tiles (30 of the f32
+# route's 64); (1, 70, 66): 4620, the last tile partial (12 pixels) and
+# rows that do not start tiles; (1, 38, 50): 1900, the last tile's 108
+# pixels ending inside its second warp's third m16 tile, so that 'down'
+# pools quads up to a partial m16 tile's last whole rows; at cio 96 and
 # cm 96 the last 64-channel tile is half full
-GENERAL_SHAPES = [(2, 24, 40), (1, 70, 66)]
+GENERAL_SHAPES = [(2, 24, 40), (1, 70, 66), (1, 38, 50)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
