@@ -10,10 +10,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3. holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 and in f32 (TF32 off), and times both
    with CUDA events: the attention block and the ConvResBlock forward at
-   the x2 sampling shapes (B = 8; K1a's and K1b's bf16 ptxas lines and
-   K2's first, no spill allowed; K1a and K1b also replayed from a CUDA
-   graph; then both passes and K1c at C = 40, 512 and 1024 against their
-   plain versions), the attention block and the ConvResBlock backward (K3's
+   the x2 sampling shapes (B = 8; the ptxas lines of K1a's, K1b's and
+   K1c's bf16 kernels and K2's first, no spill allowed; K1a and K1b
+   also replayed from a CUDA graph; then both passes and K1c at C = 40,
+   512 and 1024 against their plain versions), the attention block and the ConvResBlock backward (K3's
    ptxas line first, no spill allowed) and forward at the x3 training
    shapes; K2's and K3's bf16 times logged per shape, eager (the kernels
    line's `ms`) and replayed from a CUDA graph (`graph_ms`: its kernels
@@ -52,12 +52,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    counted likewise, its weight-transform launches too;
 8. linear attention (K4) at the x2 UNet's five attention sites above
    512 tokens (B = 8), q, k, v from LN(x) and the site's own qkv
-   weights, against its plain version; counted likewise;
+   weights, against its plain version (its ptxas lines first, no spill
+   allowed), in bf16 also timed from CUDA graphs; counted likewise, then
+   ten passes over the sites profiled (its kernels' device time);
 9. the one-pass attention block (K1c): per launch at the five sites
    against its plain version and against the two-pass route (passes A
-   and B and the fold), then the x2 chain (generate_samples, cut to
-   CHAIN_1P_STEPS steps) with FORCE_ONE_PASS set and the counters
-   zeroed, checked against the two-pass chain from the same seed;
+   and B and the fold), in bf16 its bits repeated across two launches
+   and its time printed beside the two-pass route's and their
+   difference, eager and from CUDA graphs, then the x2 chain
+   (generate_samples, cut to CHAIN_1P_STEPS steps) with FORCE_ONE_PASS
+   set and the counters zeroed, checked against the two-pass chain from
+   the same seed;
 10. the probes P1-P4 (dddpm_tpu_torch/probes/): the ptxas lines of P4's
    conv and of P2's two copies (no spill allowed), then, with the counters
    zeroed just before and read just after, each probe's main() at the
@@ -303,7 +308,9 @@ PER = {("attn_ctx", "x2_sample"): f"x2 chain step at B={B}",
        ("attn_out", "x2_sample"): f"x2 chain step at B={B}",
        ("convres_fwd", "x2_sample"): f"x2 decode at B={B}",
        ("attn_1pass", "x2_sample_1pass"):
-           f"x2 chain step at B={B} with DDDPM_ATTN_ONE_PASS=1 (five sites)",
+           f"x2 chain step at B={B} with DDDPM_ATTN_ONE_PASS=1 (five sites); "
+           f"two_pass_ms, two_pass_graph_ms: the two-pass route (A + fold + B) "
+           f"at the same sites, eager and from CUDA graphs",
        ("conv3x3", "x2_seam"):
            f"x2 ResnetBlock seams at B={B}, one each at {_SEAMS_AT}",
        ("winograd", "x2_conv3x3"):
@@ -398,8 +405,9 @@ def phase_attention(results):
     from a CUDA graph (`graph_ms`)."""
     _build.build_all(["attention_block"])
     ptxas_check("attention_block", "ctx_mma_kernel")   # no kernel of it spills
-    assert any("out_mma_kernel" in k["kernel"]
-               for k in _build.ptxas_report("attention_block"))
+    report = _build.ptxas_report("attention_block")
+    for kernel in ("out_mma_kernel", "block_1p_mma_kernel"):
+        assert any(kernel in k["kernel"] for k in report), kernel
     gen = torch.Generator(device="cuda").manual_seed(0)
     sites = [(n, c, B, "x2_sample", ATTN_SITES.count((n, c)))
              for n, c in sorted(set(ATTN_SITES), reverse=True)]
@@ -1148,7 +1156,12 @@ def _site_qkv(net, dtype, gen):
 
 
 def phase_linear_attention(results, net):
-    """K4 at the x2 UNet's five attention sites above 512 tokens."""
+    """K4 at the x2 UNet's five attention sites above 512 tokens; its
+    ptxas lines first (the bf16 kernels on mma.sync, the f32 FMA ones),
+    no spill allowed."""
+    ptxas_check("linear_attention", "lin_ctx_mma")
+    assert any("lin_out_mma" in k["kernel"]
+               for k in _build.ptxas_report("linear_attention"))
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(23)
         log(f"linear attention (K4) at the x2 attention sites, B={B}, {dtype}:")
@@ -1174,12 +1187,14 @@ def phase_linear_attention(results, net):
                 for name, (kern, plain, err) in timings.items():
                     ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 10)
                     bnd, by = bound_ms(costs[name], dtype)
-                    log(f"    {name} N={n} {dtype}: kernel {ms * 1e3:.1f} us, "
+                    gms = graph_ms(kern, 20) if dtype == torch.bfloat16 else None
+                    graph = "" if gms is None else f" ({gms * 1e3:.1f} from a CUDA graph)"
+                    log(f"    {name} N={n} {dtype}: kernel {ms * 1e3:.1f} us{graph}, "
                         f"plain {plain_ms * 1e3:.1f} us, bound "
                         f"{bnd * 1e3:.1f} us ({by})")
                     if dtype == torch.bfloat16:
                         accumulate(results, name, "x2_attn_sites", 1, ms,
-                                   plain_ms, bnd, costs[name], err)
+                                   plain_ms, bnd, costs[name], err, graph_ms=gms)
     gen = torch.Generator(device="cuda").manual_seed(23)
     sites = list(_site_qkv(net, torch.bfloat16, gen))
     torch.cuda.synchronize()
@@ -1191,14 +1206,26 @@ def phase_linear_attention(results, net):
     assert launched["lin_ctx"] == launched["lin_out"] == len(ATTN_SITES), launched
     assert all(torch.isfinite(o).all() for o in outs)
     for name in ("lin_ctx", "lin_out"):
-        results[(name, "x2_attn_sites")]["launches"] = launched[name]
+        r = results[(name, "x2_attn_sites")]
+        r["launches"] = launched[name]
+        log(f"  {name}, five sites, bf16: kernel {r['ms']:.4f} ms eager, "
+            f"{r['graph_ms']:.4f} from CUDA graphs, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms [{card_line()}]")
     log(f"  attention sites: {launched['lin_ctx']} launches of each K4 kernel, "
         f"outputs finite")
+    # where K4's time goes: its three kernels' device time and the host's
+    # share (the device's idle share) over ten passes of the five sites
+    with torch.no_grad():
+        device_profile(lambda: [la.linear_attention(q, k, v) for _ in range(10)
+                                for q, k, v, _, _ in sites],
+                       10, f"K4 at the five sites, B={B}, bf16 (a step: one pass)")
 
 
 def phase_one_pass(results, process):
-    """K1c per launch at the five sites, then the x2 chain with
-    FORCE_ONE_PASS set against the two-pass chain."""
+    """K1c per launch at the five sites (in bf16 its bits repeated across
+    two launches, and its time beside the two-pass route's and their
+    difference), then the x2 chain with FORCE_ONE_PASS set against the
+    two-pass chain."""
     gen = torch.Generator(device="cuda").manual_seed(24)
     for dtype in (torch.bfloat16, torch.float32):
         log(f"one-pass attention block (K1c), {dtype}:")
@@ -1212,19 +1239,36 @@ def phase_one_pass(results, process):
             two = lambda: ab.attention_out(
                 x, g, b, ab.fold_w_eff(w_q, ab.attention_ctx(x, g, b, w_kv),
                                        w_out, dtype), b_out)
-            err = check_close(f"attn_1pass N={n} C={c}", one(), plain(), dtype)
-            check_close(f"attn_1pass N={n} C={c} vs two-pass route", one(),
+            got = one()
+            err = check_close(f"attn_1pass N={n} C={c}", got, plain(), dtype)
+            check_close(f"attn_1pass N={n} C={c} vs two-pass route", got,
                         two(), dtype)
+            if dtype == torch.bfloat16:
+                assert torch.equal(one(), got), "K1c's bits differ between launches"
             ms, plain_ms, two_ms = cuda_ms(one, 20), cuda_ms(plain, 10), cuda_ms(two, 20)
             cost = ab.cost(B, n, c, x.element_size())["attn_1pass"]
             bnd, by = bound_ms(cost, dtype)
             log(f"    attn_1pass B={B} N={n} C={c} {dtype}: kernel "
                 f"{ms * 1e3:.1f} us, two-pass route (A + fold + B) "
-                f"{two_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-                f"{bnd * 1e3:.1f} us ({by})")
+                f"{two_ms * 1e3:.1f} us, one pass - two passes "
+                f"{(ms - two_ms) * 1e3:+.1f} us, plain {plain_ms * 1e3:.1f} us, "
+                f"bound {bnd * 1e3:.1f} us ({by})")
             if dtype == torch.bfloat16:
+                # from CUDA graphs: the device's time without the host's
+                # gaps (the two-pass route's fold is several PyTorch calls)
+                gms, two_gms = graph_ms(one, 20), graph_ms(two, 20)
+                log(f"      from CUDA graphs: kernel {gms * 1e3:.1f} us, two-pass "
+                    f"route {two_gms * 1e3:.1f} us, one pass - two passes "
+                    f"{(gms - two_gms) * 1e3:+.1f} us")
                 accumulate(results, "attn_1pass", "x2_sample_1pass",
-                           ATTN_SITES.count((n, c)), ms, plain_ms, bnd, cost, err)
+                           ATTN_SITES.count((n, c)), ms, plain_ms, bnd, cost, err,
+                           two_pass_ms=two_ms, graph_ms=gms, two_pass_graph_ms=two_gms)
+    r = results[("attn_1pass", "x2_sample_1pass")]
+    for what, k, k2 in (("eager", "ms", "two_pass_ms"),
+                        ("from CUDA graphs", "graph_ms", "two_pass_graph_ms")):
+        log(f"  attn_1pass, five sites, bf16, {what}: kernel {r[k]:.4f} ms, two-pass "
+            f"route {r[k2]:.4f} ms, one pass - two passes {r[k] - r[k2]:+.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms [{card_line()}]")
 
     early_stop = X2_CONFIG["T"] - CHAIN_1P_STEPS
     run = lambda: generate_samples(process, seed=31, fid_samples=B, batch_size=B,
@@ -2390,7 +2434,8 @@ def main() -> int:
                      else "operations"),
         "library_ms": r["library_ms"],
         **{k: r[k] for k in ("identity_ms", "graph_ms", "library_graph_ms",
-                             "library_cl_ms") if k in r},
+                             "library_cl_ms", "two_pass_ms", "two_pass_graph_ms")
+           if k in r},
     } for (name, path), r in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -58,23 +58,33 @@
 //    memory, and rows past N are masked.  What bounds this design
 //    (probes/attention_ablation.py): the operands' shared-memory traffic
 //    of mma.sync (each warp re-reads its weight columns for every 16
-//    rows), the LN and pass B's epilogue, not device memory.
-//  * float32, and the one-pass kernel in either type: FMA tiles (8 x 8
-//    outputs a thread, f32 sums), unchanged in precision.  Row
-//    statistics first, then the normalised A operand staged KC columns
-//    at a time (rounded to x's type) and the weights KC rows at a time,
-//    outputs NS columns a slab, so shared memory does not grow with C.
+//    rows), the LN and pass B's epilogue, not device memory.  The work
+//    of one item of each pass is a __device__ function (ctx_mma_item,
+//    out_mma_item) that the one-pass kernel calls too.
+//  * float32: FMA tiles (8 x 8 outputs a thread, f32 sums), unchanged in
+//    precision.  Row statistics first, then the normalised A operand
+//    staged KC columns at a time (rounded to x's type) and the weights
+//    KC rows at a time, outputs NS columns a slab, so shared memory does
+//    not grow with C.
 //
-// The one-pass route (block_1p_kernel, K1c) runs the FMA items in one
-// cooperative launch.  The TPU kernel stashes a sample's x in VMEM
-// between its phases; a block's 227 KB of shared memory cannot hold a
-// sample (4 MB at 128^2 c128 in bf16), and blocks run in no order, so
-// here the grid holds no more blocks than fit on the card at once
+// The one-pass route (K1c) runs the whole block in one cooperative
+// launch.  The TPU kernel stashes a sample's x in VMEM between its
+// phases; a block's 227 KB of shared memory cannot hold a sample (4 MB
+// at 128^2 c128 in bf16), and blocks run in no order, so here the grid
+// holds no more blocks than fit on the card at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the wrapper raises if
 // none fit) and walks the work items of four phases in grid strides,
 // with a grid-wide barrier (cooperative_groups) between them: pass A's
 // chunks, the in-order reduce per (sample, head), the W_eff fold per
-// (sample, 16 rows) in f32, and pass B's tiles, which re-read x.
+// (sample, 16 rows) in f32 on the FMA pipes (~0.15 GFLOP at the x2
+// sites, B = 8), and pass B's tiles, which re-read x, last-read first,
+// so that what L2 still holds of it (50 MB; a B = 8 batch of the x2
+// sites' x is 4-34 MB) is read before it is evicted.  In bf16
+// (block_1p_mma_kernel) passes A and B are the tensor-core items above,
+// the same code as the two-pass kernels', with shared memory the larger
+// of the two passes' and the two-pass route's rounding points (LN and p
+// rounded to bf16, W_eff folded in f32 and rounded to bf16); in f32
+// (block_1p_kernel) they are the FMA items.
 //
 // C interface: plain C entries, loaded with ctypes.  Each launches on
 // the stream it is given, allocates nothing, does not synchronise and
@@ -103,11 +113,20 @@
 #define ATTN_BF16_FMA 0
 #endif
 
+// ATTN_1P_PHASES (a -D define, 4 by default): the bf16 one-pass kernel
+// returns after its first ATTN_1P_PHASES phases (pass A, the reduce, the
+// fold, pass B), so the probe can time each phase as a difference; it
+// computes garbage below 4.  Only the ablation probe sets it.
+#ifndef ATTN_1P_PHASES
+#define ATTN_1P_PHASES 4
+#endif
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int SKIP = ATTN_SKIP;
+constexpr int PHASES_1P = ATTN_1P_PHASES;
 
 typedef __nv_bfloat16 bf16;
 
@@ -142,6 +161,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
 // Row statistics of a token tile of ROWS rows: mean and 1 / (std + eps)
 // (biased variance, two passes over the row in f32) of rows < rows, 0 and
@@ -472,55 +492,85 @@ out_kernel(const T* x, const float* g, const float* b, const T* weff,
                   blockIdx.x, blockIdx.y, smem);
 }
 
-// One-pass block, phase 1 item: sample bi, head h.  Sums the chunks'
-// partials in chunk order and writes that head's diagonal block of
-// ctx, A / s (s indexed by the row), into ctx4 (B, 4, 32, 32).
+// One-pass block, phase 1 item: sample bi, head h, rows r0 .. r0 + nr - 1
+// of its block.  Sums the chunks' partials in chunk order (eight loads
+// in flight) and writes those rows of the head's diagonal block of ctx,
+// A / s (s indexed by the row), into ctx4 (B, 4, 32, 32).
 __device__ void reduce_head(const float* part_a, const float* part_s,
-                            float* ctx4, int nchunks, int bi, int h,
-                            float* smem) {
-  float* s = smem;   // DH
+                            float* ctx4, int nchunks, int bi, int h, int r0,
+                            int nr, float* smem) {
+  float* s = smem;   // nr
   __syncthreads();
-  if (threadIdx.x < DH) {
+  if (threadIdx.x < nr) {
     float acc = 0.f;
+#pragma unroll 8
     for (int k = 0; k < nchunks; ++k)
-      acc += part_s[((size_t)bi * nchunks + k) * HIDDEN + h * DH + threadIdx.x];
+      acc += part_s[((size_t)bi * nchunks + k) * HIDDEN + h * DH + r0 + threadIdx.x];
     s[threadIdx.x] = acc;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < DH * DH; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < nr * DH; idx += THREADS) {
     float a = 0.f;
+#pragma unroll 8
     for (int k = 0; k < nchunks; ++k)
-      a += part_a[(((size_t)bi * nchunks + k) * 4 + h) * DH * DH + idx];
-    ctx4[((size_t)bi * 4 + h) * DH * DH + idx] = a / s[idx / DH];
+      a += part_a[(((size_t)bi * nchunks + k) * 4 + h) * DH * DH + r0 * DH + idx];
+    ctx4[((size_t)bi * 4 + h) * DH * DH + r0 * DH + idx] = a / s[idx / DH];
   }
 }
 
 // One-pass block, phase 2 item: rows r0 .. min(r0+FOLD_ROWS, C) of sample
 // bi's W_eff = (Wq . blockdiag(ctx)) . Wout in f32, rounded to T into weff
-// (B, C, C).  wq (C, 128), wout (128, C) of type T.
+// (B, C, C).  wq (C, 128), wout (128, C) of type T.  The sample's ctx
+// blocks are staged in shared memory; then a thread forms a column f of
+// the item's rows, each element of Wout's column read once for all of
+// them (FOLD_ROWS sums in flight, t1 read four k at a time).  Every sum
+// takes its terms in k order, one fmaf each.  smem: FOLD_SMEM floats.
+constexpr int FOLD_SMEM = 4 * DH * DH + FOLD_ROWS * HIDDEN;
+
 template <typename T>
 __device__ void fold_rows(const T* wq, const T* wout, const float* ctx4,
                           T* weff, int C, int bi, int r0, float* smem) {
-  float* t1 = smem;   // FOLD_ROWS x HIDDEN: Wq . ctx
+  float* cs = smem;                 // 4 x DH x DH: the sample's ctx blocks
+  float* t1 = cs + 4 * DH * DH;     // FOLD_ROWS x HIDDEN: Wq . ctx, 0 past nr
   const int nr = min(FOLD_ROWS, C - r0);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < nr * HIDDEN; idx += THREADS) {
+  const float4* c4 = reinterpret_cast<const float4*>(ctx4 + (size_t)bi * 4 * DH * DH);
+  for (int i = threadIdx.x; i < DH * DH; i += THREADS)
+    reinterpret_cast<float4*>(cs)[i] = c4[i];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < FOLD_ROWS * HIDDEN; idx += THREADS) {
     const int r = idx / HIDDEN, col = idx % HIDDEN, h = col / DH;
-    const T* wrow = wq + (size_t)(r0 + r) * HIDDEN + h * DH;
-    const float* cblk = ctx4 + ((size_t)bi * 4 + h) * DH * DH + col % DH;
     float acc = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) acc = fmaf(to_f(wrow[d]), cblk[d * DH], acc);
+    if (r < nr) {
+      const T* wrow = wq + (size_t)(r0 + r) * HIDDEN + h * DH;
+      const float* cblk = cs + h * DH * DH + col % DH;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) acc = fmaf(to_f(wrow[d]), cblk[d * DH], acc);
+    }
     t1[idx] = acc;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < nr * C; idx += THREADS) {
-    const int r = idx / C, f = idx % C;
-    float acc = 0.f;
+  for (int f = threadIdx.x; f < C; f += THREADS) {
+    float acc[FOLD_ROWS];
+#pragma unroll
+    for (int r = 0; r < FOLD_ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 8
-    for (int k = 0; k < HIDDEN; ++k)
-      acc = fmaf(t1[r * HIDDEN + k], to_f(wout[(size_t)k * C + f]), acc);
-    weff[((size_t)bi * C + r0 + r) * C + f] = from_f<T>(acc);
+    for (int k = 0; k < HIDDEN; k += 4) {
+      float w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[q] = to_f(wout[(size_t)(k + q) * C + f]);
+#pragma unroll
+      for (int r = 0; r < FOLD_ROWS; ++r) {
+        const float4 t = *reinterpret_cast<const float4*>(t1 + r * HIDDEN + k);
+        acc[r] = fmaf(t.x, w[0], acc[r]);
+        acc[r] = fmaf(t.y, w[1], acc[r]);
+        acc[r] = fmaf(t.z, w[2], acc[r]);
+        acc[r] = fmaf(t.w, w[3], acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < FOLD_ROWS; ++r)
+      if (r < nr) weff[((size_t)bi * C + r0 + r) * C + f] = from_f<T>(acc[r]);
   }
 }
 
@@ -545,7 +595,7 @@ block_1p_kernel(const T* x, const float* g, const float* b, const T* wkv,
                         it / nchunks, nchunks, smem);
   grid.sync();
   for (int it = blockIdx.x; it < B * 4; it += gridDim.x)
-    reduce_head(part_a, part_s, ctx4, nchunks, it / 4, it % 4, smem);
+    reduce_head(part_a, part_s, ctx4, nchunks, it / 4, it % 4, 0, DH, smem);
   grid.sync();
   const int folds = (C + FOLD_ROWS - 1) / FOLD_ROWS;
   for (int it = blockIdx.x; it < B * folds; it += gridDim.x)
@@ -717,62 +767,84 @@ __host__ __device__ constexpr int ctx_smem(int C) {
                        (4 * KS + 4 * TS + HIDDEN) * 4;
 }
 
-// Pass A on the tensor cores (bf16), part 1.  A persistent grid; a block
-// walks the items (sample bi, chunk) = (item / nchunks, item % nchunks)
-// in grid strides, the 64-token tiles [chunk * tpc, (chunk + 1) * tpc) of
-// sample bi, and writes each item's partial A (4 x 32 x 32) and s (128).
-// Its two warp groups (warps 0-3, 4-7) take the item's TS-token sub-tiles
-// in turn (group gr: sub-tiles gr, gr + 2, ...), each at its own pace at C
-// <= NS (named barriers; the weights are shared and read-only), in step
-// above it (the weight slabs are shared).  Warp wh of a group forms kv's
-// columns of head wh (k: 32 wh .., v: 128 + 32 wh ..) for the sub-tile's
-// rows, so every warp takes its share of the exps, then A_wh += p_wh^T
-// v_wh over those rows (K = TS tokens) from its own p | v: no block-wide
-// exchange between the products.  At the item's end the groups' partials
-// are added in a fixed order.  CPL: 16-byte chunks of a row a lane holds
-// in the LN (C <= 64 CPL).
+// Pass A's shared memory on the tensor cores (ctx_smem), carved.
+struct CtxSmem {
+  bf16 *w, *xg, *pv;
+  float *gs, *bs, *mean, *rinv, *red;
+};
+
+template <bool WIDE>
+__device__ __forceinline__ CtxSmem ctx_carve(unsigned char* smem_raw, int C) {
+  const int KP = round_up(C, 16), LDX = KP + 8;
+  CtxSmem s;
+  s.mean = s.rinv = nullptr;
+  if constexpr (!WIDE) {
+    s.w = reinterpret_cast<bf16*>(smem_raw);   // KP x LDKV
+    s.xg = s.w + KP * LDKV;                     // 2 groups x 2 x TS x LDX
+    s.pv = s.xg + 4 * TS * LDX;                 // 8 warps x TS x LDP
+    s.gs = reinterpret_cast<float*>(s.pv + 8 * TS * LDP);   // KP
+    s.bs = s.gs + KP;                           // KP
+  } else {
+    s.w = reinterpret_cast<bf16*>(smem_raw);   // 2 x KS x LDKV
+    s.xg = s.w + 2 * KS * LDKV;                // 2 x 2 TS x LDS
+    s.pv = s.xg + 4 * TS * LDS;                // 8 warps x TS x LDP
+    s.gs = reinterpret_cast<float*>(s.pv + 8 * TS * LDP);   // 2 x KS
+    s.bs = s.gs + 2 * KS;                      // 2 x KS
+    s.mean = s.bs + 2 * KS;                    // 2 TS
+    s.rinv = s.mean + 2 * TS;                  // 2 TS
+  }
+  s.red = s.bs + (WIDE ? 2 * KS + 4 * TS : KP);   // HIDDEN
+  return s;
+}
+
+// What a block of pass A loads once, before its first item: at C <= NS
+// W_kv (by cp.async, waited for by the first item), g and b.
+template <bool WIDE>
+__device__ __forceinline__ void ctx_mma_setup(const CtxSmem& s, const bf16* wkv,
+                                              const float* g, const float* b,
+                                              int C, int vec) {
+  if constexpr (!WIDE) {   // W_kv, g, b for the block's life
+    const int KP = round_up(C, 16);
+    load_block(s.w, LDKV, wkv, KV, C, KV, KP, KV, vec);
+    cp_async_commit();
+    load_vec(s.gs, g, 0, KP, C);
+    load_vec(s.bs, b, 0, KP, C);
+  }
+}
+
+// Pass A on the tensor cores (bf16), one item: (sample bi, chunk) = (item
+// / nchunks, item % nchunks), the 64-token tiles [chunk * tpc, (chunk +
+// 1) * tpc) of sample bi; it writes the item's partial A (4 x 32 x 32)
+// and s (128).  The block's two warp groups (warps 0-3, 4-7) take the
+// item's TS-token sub-tiles in turn (group gr: sub-tiles gr, gr + 2, ...),
+// each at its own pace at C <= NS (named barriers; the weights are shared
+// and read-only), in step above it (the weight slabs are shared).  Warp
+// wh of a group forms kv's columns of head wh (k: 32 wh .., v: 128 + 32
+// wh ..) for the sub-tile's rows, so every warp takes its share of the
+// exps, then A_wh += p_wh^T v_wh over those rows (K = TS tokens) from its
+// own p | v: no block-wide exchange between the products.  At the item's
+// end the groups' partials are added in a fixed order.  CPL: 16-byte
+// chunks of a row a lane holds in the LN (C <= 64 CPL).  Called by
+// ctx_mma_kernel and by the one-pass block_1p_mma_kernel, after
+// ctx_mma_setup.
 template <bool WIDE, int CPL>
-__global__ void __launch_bounds__(THREADS, 2)
-ctx_mma_kernel(const bf16* x, const float* g, const float* b, const bf16* wkv,
-               float* part_a, float* part_s, int N, int C, int nchunks, int tpc,
-               int items, int vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+__device__ __forceinline__ void ctx_mma_item(const CtxSmem& s, const bf16* x,
+                                             const float* g, const float* b,
+                                             const bf16* wkv, float* part_a,
+                                             float* part_s, int N, int C,
+                                             int nchunks, int tpc, int item,
+                                             int vec) {
   const int KP = round_up(C, 16), LDX = KP + 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane >> 2, tig = lane & 3;
   const int gr = warp >> 2, wh = warp & 3, gtid = threadIdx.x & 127;
   const int j8 = lane >> 3, r8 = lane & 7;
   const int nsub = (N + TS - 1) / TS;
-
-  // shared memory (ctx_smem)
-  bf16 *w, *xg, *pv;
-  float *gs, *bs, *mean = nullptr, *rinv = nullptr;
-  if constexpr (!WIDE) {
-    w = reinterpret_cast<bf16*>(smem_raw);   // KP x LDKV
-    xg = w + KP * LDKV;                       // 2 groups x 2 x TS x LDX
-    pv = xg + 4 * TS * LDX;                   // 8 warps x TS x LDP
-    gs = reinterpret_cast<float*>(pv + 8 * TS * LDP);   // KP
-    bs = gs + KP;                             // KP
-  } else {
-    w = reinterpret_cast<bf16*>(smem_raw);   // 2 x KS x LDKV
-    xg = w + 2 * KS * LDKV;                  // 2 x 2 TS x LDS
-    pv = xg + 4 * TS * LDS;                  // 8 warps x TS x LDP
-    gs = reinterpret_cast<float*>(pv + 8 * TS * LDP);   // 2 x KS
-    bs = gs + 2 * KS;                        // 2 x KS
-    mean = bs + 2 * KS;                      // 2 TS
-    rinv = mean + 2 * TS;                    // 2 TS
-  }
-  float* red = bs + (WIDE ? 2 * KS + 4 * TS : KP);   // HIDDEN
+  bf16 *w = s.w, *xg = s.xg, *pv = s.pv;
+  float *gs = s.gs, *bs = s.bs, *mean = s.mean, *rinv = s.rinv, *red = s.red;
   bf16* pvw = pv + warp * TS * LDP;
-
-  if constexpr (!WIDE) {   // W_kv, g, b for the block's life
-    load_block(w, LDKV, wkv, KV, C, KV, KP, KV, vec);
-    cp_async_commit();
-    load_vec(gs, g, 0, KP, C);
-    load_vec(bs, b, 0, KP, C);
-  }
   const float nom[1][2] = {};
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+  {
     const int bi = item / nchunks, chunk = item % nchunks;
     const int u0 = chunk * tpc * (TN / TS), u1 = min(nsub, u0 + tpc * (TN / TS));
     const bf16* xsamp = x + (size_t)bi * N * C;
@@ -945,7 +1017,34 @@ ctx_mma_kernel(const bf16* x, const float* g, const float* b, const bf16* wkv,
     }
     __syncthreads();   // p | v's room free again
   }
+}
+
+// Pass A's items 0 .. items - 1 on the tensor cores, a block's in grid
+// strides.
+template <bool WIDE, int CPL>
+__device__ __forceinline__ void ctx_mma_items(const bf16* x, const float* g,
+                                              const float* b, const bf16* wkv,
+                                              float* part_a, float* part_s, int N,
+                                              int C, int nchunks, int tpc, int items,
+                                              int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const CtxSmem s = ctx_carve<WIDE>(smem_raw, C);
+  ctx_mma_setup<WIDE>(s, wkv, g, b, C, vec);
+  for (int item = blockIdx.x; item < items; item += gridDim.x)
+    ctx_mma_item<WIDE, CPL>(s, x, g, b, wkv, part_a, part_s, N, C, nchunks, tpc,
+                            item, vec);
   cp_async_wait_all();   // no copy in flight at exit (a block with no item)
+}
+
+// Pass A on the tensor cores (bf16), part 1.  A persistent grid; a block
+// walks the items in grid strides (ctx_mma_item).
+template <bool WIDE, int CPL>
+__global__ void __launch_bounds__(THREADS, 2)
+ctx_mma_kernel(const bf16* x, const float* g, const float* b, const bf16* wkv,
+               float* part_a, float* part_s, int N, int C, int nchunks, int tpc,
+               int items, int vec) {
+  ctx_mma_items<WIDE, CPL>(x, g, b, wkv, part_a, part_s, N, C, nchunks, tpc, items,
+                           vec);
 }
 
 // Shared memory of pass B, in bytes.  C <= NS: W_eff[b] (KP x NP + 8),
@@ -960,55 +1059,79 @@ __host__ __device__ constexpr int out_smem(int C) {
                  : (2 * KS * LDN + 2 * TN * LDS) * 2 + (4 * KS + 2 * TN) * 4;
 }
 
-// Pass B on the tensor cores (bf16): y = x + LN(x) @ W_eff[b] + b_out.  A
-// persistent grid; a block walks the items (sample, chunk) as pass A's
-// does.  C <= NS: W_eff[b] stays in shared memory while the block's
-// items are of sample b; the block's four warp groups (warps 2 gr, 2 gr +
-// 1) take the item's TS-token sub-tiles in turn, each at its own pace
-// (named barriers), warp gw of a group forming the sub-tile's gw-th half
-// of the columns rounded up to 32 (at most NT n8 tiles, C <= 4 NT), with
-// LN taken on the A fragments of the raw x sub-tile; y may be x (each
-// sub-tile is read whole before any of it is written).  C > NS: 64-token
-// tiles, warp (wm, wn) = (warp / 2, warp % 2) forming rows 16 wm .. +15
-// and the wn-th half of each column slab of NS; y is not x.
+// Pass B's shared memory on the tensor cores (out_smem), carved.
+struct OutSmem {
+  bf16 *w, *xb;
+  float *gs, *bs, *bos, *mean, *rinv;
+};
+
+template <bool WIDE>
+__device__ __forceinline__ OutSmem out_carve(unsigned char* smem_raw, int C) {
+  const int KP = round_up(C, 16), NP = round_up(C, 32);
+  const int LDX = KP + 8, LDW = NP + 8;
+  OutSmem s;
+  s.bos = nullptr;
+  if constexpr (!WIDE) {
+    s.w = reinterpret_cast<bf16*>(smem_raw);       // KP x LDW
+    s.xb = s.w + KP * LDW;                          // 4 x 2 x TS x LDX
+    s.gs = reinterpret_cast<float*>(s.xb + 8 * TS * LDX);   // KP
+    s.bs = s.gs + KP;                               // KP
+    s.bos = s.bs + KP;                              // NP
+    s.mean = s.bos + NP;                            // 4 x TS
+  } else {
+    s.w = reinterpret_cast<bf16*>(smem_raw);       // 2 x KS x LDN
+    s.xb = s.w + 2 * KS * LDN;                      // 2 x TN x LDS
+    s.gs = reinterpret_cast<float*>(s.xb + 2 * TN * LDS);   // 2 x KS
+    s.bs = s.gs + 2 * KS;                           // 2 x KS
+    s.mean = s.bs + 2 * KS;                         // TN
+  }
+  s.rinv = s.mean + (WIDE ? TN : 4 * TS);
+  return s;
+}
+
+// What a block of pass B loads once, before its first item: at C <= NS
+// g, b and b_out.
+template <bool WIDE>
+__device__ __forceinline__ void out_mma_setup(const OutSmem& s, const float* g,
+                                              const float* b, const float* b_out,
+                                              int C) {
+  if constexpr (!WIDE) {
+    const int KP = round_up(C, 16), NP = round_up(C, 32);
+    load_vec(s.gs, g, 0, KP, C);
+    load_vec(s.bs, b, 0, KP, C);
+    load_vec(s.bos, b_out, 0, NP, C);
+  }
+}
+
+// Pass B on the tensor cores (bf16), one item: y = x + LN(x) @ W_eff[b] +
+// b_out over the item (sample, chunk) as pass A's.  C <= NS: W_eff[b]
+// stays in shared memory while the block's items are of sample b
+// (`loaded`: the sample whose W_eff is there, -1 before the first item);
+// the block's four warp groups (warps 2 gr, 2 gr + 1) take the item's
+// TS-token sub-tiles in turn, each at its own pace (named barriers), warp
+// gw of a group forming the sub-tile's gw-th half of the columns rounded
+// up to 32 (at most NT n8 tiles, C <= 4 NT), with LN taken on the A
+// fragments of the raw x sub-tile; y may be x (each sub-tile is read
+// whole before any of it is written).  C > NS: 64-token tiles, warp (wm,
+// wn) = (warp / 2, warp % 2) forming rows 16 wm .. +15 and the wn-th half
+// of each column slab of NS; y is not x.  Called by out_mma_kernel and
+// by the one-pass block_1p_mma_kernel, after out_mma_setup.
 template <bool WIDE, int NT>
-__global__ void __launch_bounds__(THREADS, NT <= 8 ? 2 : 1)
-out_mma_kernel(const bf16* x, const float* g, const float* b, const bf16* weff,
-               const float* b_out, bf16* y, int N, int C, int nchunks, int tpc,
-               int items, int vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+__device__ __forceinline__ void out_mma_item(const OutSmem& s, const bf16* x,
+                                             const float* g, const float* b,
+                                             const bf16* weff, const float* b_out,
+                                             bf16* y, int N, int C, int nchunks,
+                                             int tpc, int item, int vec,
+                                             int& loaded) {
   const int KP = round_up(C, 16), NP = round_up(C, 32);
   const int LDX = KP + 8, LDW = NP + 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane >> 2, tig = lane & 3;
   const int wm = warp >> 1, wn = warp & 1;   // C > NS; C <= NS: group wm, warp wn
   const int ntiles = (N + TN - 1) / TN;
-
-  bf16 *w, *xb;
-  float *gs, *bs, *bos = nullptr, *mean;
-  if constexpr (!WIDE) {
-    w = reinterpret_cast<bf16*>(smem_raw);       // KP x LDW
-    xb = w + KP * LDW;                            // 4 x 2 x TS x LDX
-    gs = reinterpret_cast<float*>(xb + 8 * TS * LDX);   // KP
-    bs = gs + KP;                                 // KP
-    bos = bs + KP;                                // NP
-    mean = bos + NP;                              // 4 x TS
-  } else {
-    w = reinterpret_cast<bf16*>(smem_raw);       // 2 x KS x LDN
-    xb = w + 2 * KS * LDN;                        // 2 x TN x LDS
-    gs = reinterpret_cast<float*>(xb + 2 * TN * LDS);   // 2 x KS
-    bs = gs + 2 * KS;                             // 2 x KS
-    mean = bs + 2 * KS;                           // TN
-  }
-  float* rinv = mean + (WIDE ? TN : 4 * TS);
-
-  if constexpr (!WIDE) {
-    load_vec(gs, g, 0, KP, C);
-    load_vec(bs, b, 0, KP, C);
-    load_vec(bos, b_out, 0, NP, C);
-  }
-  int loaded = -1;   // the sample whose W_eff is in w (C <= NS)
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+  bf16 *w = s.w, *xb = s.xb;
+  float *gs = s.gs, *bs = s.bs, *bos = s.bos, *mean = s.mean, *rinv = s.rinv;
+  {
     const int bi = item / nchunks, chunk = item % nchunks;
     const int t0 = chunk * tpc, t1 = min(ntiles, t0 + tpc);
     const size_t sbase = (size_t)bi * N * C;
@@ -1189,7 +1312,118 @@ out_mma_kernel(const bf16* x, const float* g, const float* b, const bf16* weff,
       }
     }
   }
+}
+
+// Pass B's items on the tensor cores, a block's in grid strides: from
+// item blockIdx.x up, or (REVERSE) from item items - 1 - blockIdx.x down.
+template <bool WIDE, int NT, bool REVERSE>
+__device__ __forceinline__ void out_mma_items(const bf16* x, const float* g,
+                                              const float* b, const bf16* weff,
+                                              const float* b_out, bf16* y, int N,
+                                              int C, int nchunks, int tpc, int items,
+                                              int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const OutSmem s = out_carve<WIDE>(smem_raw, C);
+  out_mma_setup<WIDE>(s, g, b, b_out, C);
+  int loaded = -1;   // the sample whose W_eff is in w (C <= NS)
+  if constexpr (REVERSE) {
+    for (int item = items - 1 - blockIdx.x; item >= 0; item -= gridDim.x)
+      out_mma_item<WIDE, NT>(s, x, g, b, weff, b_out, y, N, C, nchunks, tpc, item, vec,
+                             loaded);
+  } else {
+    for (int item = blockIdx.x; item < items; item += gridDim.x)
+      out_mma_item<WIDE, NT>(s, x, g, b, weff, b_out, y, N, C, nchunks, tpc, item, vec,
+                             loaded);
+  }
   cp_async_wait_all();   // no copy in flight at exit (a block with no item)
+}
+
+// Pass B on the tensor cores (bf16).  A persistent grid; a block walks
+// the items (sample, chunk) in grid strides as pass A's does
+// (out_mma_item).
+template <bool WIDE, int NT>
+__global__ void __launch_bounds__(THREADS, NT <= 8 ? 2 : 1)
+out_mma_kernel(const bf16* x, const float* g, const float* b, const bf16* weff,
+               const float* b_out, bf16* y, int N, int C, int nchunks, int tpc,
+               int items, int vec) {
+  out_mma_items<WIDE, NT, false>(x, g, b, weff, b_out, y, N, C, nchunks, tpc, items,
+                                 vec);
+}
+
+// The one-pass kernel's first three phases are calls, not inlined, so
+// that ptxas allocates each phase's registers apart from the others'
+// (inlined into one body with pass B's, they spill at 128 registers a
+// thread; pass B stays inline, where it has the kernel's registers to
+// itself).  Pass A:
+template <bool WIDE, int CPL>
+__device__ __noinline__ void ctx_phase_1p(const bf16* x, const float* g,
+                                          const float* b, const bf16* wkv,
+                                          float* part_a, float* part_s, int N, int C,
+                                          int nchunks, int tpc, int items, int vec) {
+  ctx_mma_items<WIDE, CPL>(x, g, b, wkv, part_a, part_s, N, C, nchunks, tpc, items,
+                           vec);
+}
+
+// The one-pass block on the tensor cores (bf16): pass A's and pass B's
+// items through the same ctx_mma_item / out_mma_item as the two-pass
+// kernels, in one cooperative launch of at most as many blocks as fit on
+// the card at once, with a grid-wide barrier between the phases:
+//   phase 0: pass A's items (B x nchunks), partials to part_a, part_s
+//   phase 1: the reduce, per (sample, head, 8 rows), into ctx4
+//            (reduce_head)
+//   phase 2: the W_eff fold in f32, per (sample, FOLD_ROWS rows), rounded
+//            to bf16 into weff (fold_rows)
+//   phase 3: pass B's items, walked in the reverse of phase 0's order so
+//            that the x a block read last in phase 0 is the first it
+//            re-reads (the most likely to be in L2); y out of place, as
+//            JAX's one-pass kernel does not alias.
+// Shared memory: the largest any phase takes (block_1p_smem).
+// The one-pass kernel's reduce: items of RQ rows of a head's block, one
+// entry a thread.
+__device__ __noinline__ void reduce_phase_1p(const float* part_a, const float* part_s,
+                                             float* ctx4, int B, int nchunks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int RQ = THREADS / DH, QS = DH / RQ;
+  for (int it = blockIdx.x; it < B * 4 * QS; it += gridDim.x)
+    reduce_head(part_a, part_s, ctx4, nchunks, it / (4 * QS), (it / QS) % 4,
+                (it % QS) * RQ, RQ, reinterpret_cast<float*>(smem_raw));
+}
+
+// The one-pass kernel's fold: items of FOLD_ROWS rows of a sample's W_eff.
+__device__ __noinline__ void fold_phase_1p(const bf16* wq, const bf16* wout,
+                                           const float* ctx4, bf16* weff, int B, int C) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int folds = (C + FOLD_ROWS - 1) / FOLD_ROWS;
+  for (int it = blockIdx.x; it < B * folds; it += gridDim.x)
+    fold_rows<bf16>(wq, wout, ctx4, weff, C, it / folds, (it % folds) * FOLD_ROWS,
+                    reinterpret_cast<float*>(smem_raw));
+}
+
+template <bool WIDE, int CPL, int NT>
+__global__ void __launch_bounds__(THREADS, NT <= 8 ? 2 : 1)
+block_1p_mma_kernel(const bf16* x, const float* g, const float* b,
+                    const bf16* wkv, const bf16* wq, const bf16* wout,
+                    const float* b_out, float* part_a, float* part_s, float* ctx4,
+                    bf16* weff, bf16* y, int B, int N, int C, int nchunks, int tpc,
+                    int vec) {
+  ctx_phase_1p<WIDE, CPL>(x, g, b, wkv, part_a, part_s, N, C, nchunks, tpc,
+                          B * nchunks, vec);
+  cg::this_grid().sync();
+  if (PHASES_1P < 2) return;
+  reduce_phase_1p(part_a, part_s, ctx4, B, nchunks);
+  cg::this_grid().sync();
+  if (PHASES_1P < 3) return;
+  fold_phase_1p(wq, wout, ctx4, weff, B, C);
+  cg::this_grid().sync();
+  if (PHASES_1P < 4) return;
+  out_mma_items<WIDE, NT, true>(x, g, b, weff, b_out, y, N, C, nchunks, tpc,
+                                B * nchunks, vec);
+}
+
+// Shared memory of block_1p_mma_kernel, in bytes: the largest of pass
+// A's, pass B's and the fold's (the reduce takes fewer).
+__host__ __device__ constexpr int block_1p_smem(int C) {
+  return imax(imax(ctx_smem(C), out_smem(C)), FOLD_SMEM * (int)sizeof(float));
 }
 
 // ------------------------------------------------------------- launches
@@ -1290,12 +1524,12 @@ int per_sm(K kernel, int smem) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// Blocks of block_1p_kernel<T> that fit on the card at once, or a
-// negative CUDA error code; 0 if the card cannot launch cooperatively.
-template <typename T>
-int resident_1p() {
-  const int smem = FMA_CTX_SMEM * (int)sizeof(float);
-  const int n = per_sm(block_1p_kernel<T>, smem);
+// Blocks of `kernel` (THREADS threads, smem bytes) that fit on the card
+// at once, or a negative CUDA error code; 0 if the card cannot launch
+// cooperatively.
+template <typename K>
+int resident(K kernel, int smem) {
+  const int n = per_sm(kernel, smem);
   if (n < 0) return n;
   int dev = 0, sms = 0, coop = 0;
   cudaError_t err;
@@ -1306,6 +1540,28 @@ int resident_1p() {
           cudaSuccess)
     return -(int)err;
   return coop ? n * sms : 0;
+}
+
+// Blocks of block_1p_kernel<T> (FMA) that fit on the card at once.
+template <typename T>
+int resident_1p() {
+  return resident(block_1p_kernel<T>, FMA_CTX_SMEM * (int)sizeof(float));
+}
+
+// f(the one-pass tensor-core kernel for width C): pass A's CPL and pass
+// B's NT as with_ctx_kernel and with_out_kernel pick them
+template <typename F>
+int with_1p_kernel(int C, F f) {
+  if (C > NS) return f(block_1p_mma_kernel<true, 4, 16>);
+  if (C <= 64) return f(block_1p_mma_kernel<false, 1, 4>);
+  if (C <= 128) return f(block_1p_mma_kernel<false, 2, 8>);
+  return f(block_1p_mma_kernel<false, 4, 16>);
+}
+
+// Blocks of the one-pass tensor-core kernel at width C that fit on the
+// card at once.
+int resident_1p_mma(int C) {
+  return with_1p_kernel(C, [&](auto kernel) { return resident(kernel, block_1p_smem(C)); });
 }
 
 template <typename T>
@@ -1330,6 +1586,27 @@ int launch_1p(const void* x, const void* g, const void* b, const void* wkv,
       FMA_CTX_SMEM * (int)sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// block_1p_mma_kernel on `grid` blocks; cudaLaunchCooperativeKernel
+// refuses a grid larger than fits on the card at once.
+int launch_1p_mma(const bf16* x, const float* g, const float* b, const bf16* wkv,
+                  const bf16* wq, const bf16* wout, const float* b_out,
+                  float* part_a, float* part_s, float* ctx4, bf16* weff, bf16* y,
+                  int B, int N, int C, int nchunks, int tpc, int grid, int vec,
+                  cudaStream_t stream) {
+  const int smem = block_1p_smem(C);
+  return with_1p_kernel(C, [&](auto kernel) {
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    void* args[] = {&x,    &g,  &b,    &wkv,   &wq,   &wout, &b_out,
+                    &part_a, &part_s, &ctx4, &weff, &y,   &B,    &N,
+                    &C,    &nchunks, &tpc, &vec};
+    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(THREADS),
+                                      args, smem, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -1402,28 +1679,43 @@ int attn_mma_per_sm(int pass, int C) {
   return with_out_kernel(C, [&](auto kernel) { return per_sm(kernel, out_smem(C)); });
 }
 
-// The number of blocks of the one-pass kernel that fit on the card at
-// once (the largest grid attn_1p takes; its shared memory does not depend
-// on C), 0 if the card cannot launch cooperatively, or a negative CUDA
-// error code.
+// The number of blocks of the one-pass kernel for (C, dtype) that fit on
+// the card at once (the largest grid attn_1p takes), 0 if the card cannot
+// launch cooperatively, or a negative CUDA error code.
 int attn_1p_resident(int C, int dtype) {
-  (void)C;
-  return dtype == 1 ? resident_1p<bf16>() : resident_1p<float>();
+  if (dtype != 1) return resident_1p<float>();
+#if ATTN_BF16_FMA
+  return resident_1p<bf16>();
+#else
+  return resident_1p_mma(C);
+#endif
 }
 
 // The whole block in one cooperative launch of `grid` blocks (at most
 // attn_1p_resident's).  x, y (B, N, C) of dtype, y not x; wkv (C, 256),
 // wq (C, 128), wout (128, C) of dtype; g, b, b_out (C) f32; part_a
 // (B, nchunks, 4, 32, 32), part_s (B, nchunks, 128), ctx4 (B, 4, 32, 32)
-// f32 and weff (B, C, C) of dtype are scratch.
+// f32 and weff (B, C, C) of dtype are scratch.  dtype 0: FMA
+// (block_1p_kernel; vec unread); 1: tensor cores (block_1p_mma_kernel;
+// vec: x, wkv, weff and y 16-byte aligned and C % 8 == 0).
 int attn_1p(const void* x, const void* g, const void* b, const void* wkv,
             const void* wq, const void* wout, const void* b_out, void* part_a,
             void* part_s, void* ctx4, void* weff, void* y, int B, int N, int C,
-            int nchunks, int tiles_per_chunk, int grid, int dtype, void* stream) {
-  if (dtype == 1)
+            int nchunks, int tiles_per_chunk, int grid, int vec, int dtype,
+            void* stream) {
+  if (dtype == 1) {
+#if ATTN_BF16_FMA
     return launch_1p<bf16>(x, g, b, wkv, wq, wout, b_out, part_a, part_s, ctx4,
                            weff, y, B, N, C, nchunks, tiles_per_chunk, grid,
                            (cudaStream_t)stream);
+#else
+    return launch_1p_mma((const bf16*)x, (const float*)g, (const float*)b,
+                         (const bf16*)wkv, (const bf16*)wq, (const bf16*)wout,
+                         (const float*)b_out, (float*)part_a, (float*)part_s,
+                         (float*)ctx4, (bf16*)weff, (bf16*)y, B, N, C, nchunks,
+                         tiles_per_chunk, grid, vec, (cudaStream_t)stream);
+#endif
+  }
   return launch_1p<float>(x, g, b, wkv, wq, wout, b_out, part_a, part_s, ctx4,
                           weff, y, B, N, C, nchunks, tiles_per_chunk, grid,
                           (cudaStream_t)stream);

@@ -108,15 +108,23 @@ def build_log(name: str) -> str:
 
 def ptxas_report(name: str) -> List[dict]:
     """Per kernel of csrc/<name>.cu's library: its mangled name,
-    registers and spill bytes, parsed from `build_log(name)`."""
+    registers and spill bytes, parsed from `build_log(name)`.  The spill
+    bytes of a function that is not inlined (its own "Function
+    properties" after the kernel's) are added to the kernel's."""
     out: List[dict] = []
+    function = ""
     for line in build_log(name).splitlines():
         if "Compiling entry function" in line:
             out.append({"kernel": line.split("'")[1]})
+        elif "Function properties for" in line:
+            function = line.split("Function properties for")[1].strip()
         elif out and "bytes spill stores" in line:
             words = line.replace(",", " ").split()
-            out[-1]["spill_stores"] = int(words[words.index("spill") - 2])
-            out[-1]["spill_loads"] = int(words[-4])
+            spill = {"spill_stores": int(words[words.index("spill") - 2]),
+                     "spill_loads": int(words[-4])}
+            own = function == out[-1]["kernel"]
+            for k, v in spill.items():
+                out[-1][k] = v if own else out[-1].get(k, 0) + v
         elif out and "Used" in line and "registers" in line:
             words = line.split()
             out[-1]["registers"] = int(words[words.index("Used") + 1])

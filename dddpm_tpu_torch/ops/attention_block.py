@@ -17,8 +17,9 @@ width C:
 (in bfloat16 on the tensor cores, in float32 on the FMA pipes), or, when
 FORCE_ONE_PASS is set (the JAX package's own selector,
 DDDPM_ATTN_ONE_PASS=1 at import), as one cooperative launch of the same
-work, the fold included (attention_1pass, K1c, on the FMA pipes), which
-writes y out of place.  At or below PLAIN_PATH_MAX_TOKENS tokens, and for
+work, the fold included (attention_1pass, K1c: in bfloat16 the two
+passes' own tensor-core item code with the fold in f32 between them, in
+float32 the FMA items), which writes y out of place.  At or below PLAIN_PATH_MAX_TOKENS tokens, and for
 every tensor on the CPU, the plain version `reference_impl` runs instead.
 The backward of the kernel path is autograd through `reference_impl`, as
 the JAX custom VJP does.  The kernels take heads of DIM_HEAD only (4 x 32,
@@ -247,32 +248,55 @@ def attention_1pass(x, g, b, w_kv, w_q, w_out, b_out):
     if (b_out.shape != (c,) or b_out.dtype != torch.float32
             or b_out.device != x.device):
         raise ValueError("b_out must be a float32 (C,) tensor on x's device")
-    lib = library()
-    with torch.cuda.device(x.device):
-        resident = lib.attn_1p_resident(c, _DTYPES[x.dtype])
-    if resident < 0:
-        _build.check(-resident, "attn_1p_resident")
-    if resident == 0:
-        raise RuntimeError("the card cannot hold a block of the one-pass kernel "
-                           "(or launch cooperatively)")
-    ntiles = -(-n // TOKEN_TILE)
-    grid = min(resident, max(bsz * ntiles, bsz * -(-c // FOLD_ROWS)))
-    want = min(ntiles, max(1, grid // bsz))
-    tpc = -(-ntiles // want)
-    nchunks = -(-ntiles // tpc)
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    nchunks, tpc, grid = plan_1pass(bsz, n, c, _resident_1p(index, c, _DTYPES[x.dtype]),
+                                    x.dtype == torch.bfloat16)
     f32 = dict(dtype=torch.float32, device=x.device)
     part_a = torch.empty((bsz, nchunks, 4, DIM_HEAD, DIM_HEAD), **f32)
     part_s = torch.empty((bsz, nchunks, HIDDEN), **f32)
     ctx4 = torch.empty((bsz, 4, DIM_HEAD, DIM_HEAD), **f32)
     w_eff = torch.empty((bsz, c, c), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
+    lib = library()
     LAUNCHES["attn_1pass"] += 1
     p = _build.ptr
     _build.check(lib.attn_1p(p(x), p(g), p(b), p(w_kv), p(w_q), p(w_out),
                              p(b_out), p(part_a), p(part_s), p(ctx4), p(w_eff),
                              p(y), bsz, n, c, nchunks, tpc, grid,
-                             _DTYPES[x.dtype], _build.stream(x)), "attn_1p")
+                             _vec(c, x, w_kv, w_eff, y), _DTYPES[x.dtype],
+                             _build.stream(x)), "attn_1p")
     return y
+
+
+def plan_1pass(bsz: int, n: int, c: int, resident: int, tensor_cores: bool) -> tuple:
+    """(nchunks, tiles_per_chunk, grid) of the one-pass kernel on at most
+    `resident` blocks.  The tensor-core kernel chunks pass A's and B's
+    items as the two-pass kernels do (`plan`); the FMA kernel takes a
+    chunk a block.  The grid covers the largest phase: the chunks, the
+    fold's row blocks or the reduce's heads."""
+    ntiles = -(-n // TOKEN_TILE)
+    folds = -(-c // FOLD_ROWS)
+    if tensor_cores:
+        nchunks, tpc = plan(bsz, ntiles, resident)
+        return nchunks, tpc, min(resident, max(bsz * nchunks, bsz * folds, bsz * 4))
+    grid = min(resident, max(bsz * ntiles, bsz * folds))
+    want = min(ntiles, max(1, grid // bsz))
+    tpc = -(-ntiles // want)
+    return -(-ntiles // tpc), tpc, grid
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_1p(index: int, c: int, dtype: int) -> int:
+    """Blocks of the one-pass kernel for (c, dtype) that fit on card
+    `index` at once: its grid's largest size."""
+    with torch.cuda.device(index):
+        resident = library().attn_1p_resident(c, dtype)
+    if resident < 0:
+        _build.check(-resident, "attn_1p_resident")
+    if resident == 0:
+        raise RuntimeError("the card cannot hold a block of the one-pass kernel "
+                           "(or launch cooperatively)")
+    return resident
 
 
 def library(defines=()):
@@ -289,7 +313,7 @@ def library(defines=()):
         lib.attn_mma_per_sm.restype = i
         lib.attn_1p_resident.argtypes = [i, i]
         lib.attn_1p_resident.restype = i
-        lib.attn_1p.argtypes = [vp] * 12 + [i] * 7 + [vp]
+        lib.attn_1p.argtypes = [vp] * 12 + [i] * 8 + [vp]
         lib.attn_1p.restype = i
     return lib
 

@@ -4,22 +4,31 @@ dddpm_tpu/ops/pallas/linear_attention.py).
     ctx = blockdiag over heads of softmax_tokens(k)^T v       (f32)
     out = q @ ctx
 
+No model of either package calls it: the UNets' attention is the fused
+block of ops/attention_block.py, whatever the JAX module's docstring
+says of the UNet.  Its callers are the tests and chip_smoke.py.
+
 On a CUDA tensor the forward is two hand-written kernels
 (csrc/linear_attention.cu, K4): `linear_attention_ctx`, per-chunk
 softmax partials with their own running max, merged in chunk order,
 and `linear_attention_out`, the q product with ctx rounded to q's
-dtype, as the TPU kernel rounds it.  The kernels take heads of any
-multiple of 32 dimensions; `linear_attention` takes any dim_head and
-zero-pads each head to the next multiple of 32 (`pad_heads`), which is
-exact: a padded k dimension's softmax is uniform over the tokens but
-meets a zero q dimension, and a padded v dimension gives a zero column,
-sliced off.  On a CPU tensor `plain` runs, which repeats the kernels'
-roundings.  The backward is autograd through `reference_impl`, as the
-JAX custom VJP does.
+dtype, as the TPU kernel rounds it.  In bfloat16 both run their
+products on the tensor cores; the ctx kernel splits p into a bf16 pair
+(hi = bf16(p), lo = bf16(p - hi)) and multiplies both, so ctx keeps
+f32's accuracy, as the TPU kernel's f32 product does.  In float32 they
+are FMA loops.  The kernels take heads of any multiple of 32
+dimensions; `linear_attention` takes any dim_head and zero-pads each
+head to the next multiple of 32 (`pad_heads`), which is exact: a padded
+k dimension's softmax is uniform over the tokens but meets a zero q
+dimension, and a padded v dimension gives a zero column, sliced off.
+On a CPU tensor `plain` runs, which repeats the kernels' roundings.
+The backward is autograd through `reference_impl`, as the JAX custom
+VJP does.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -114,11 +123,17 @@ def _lib():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _chunks(bsz: int, n: int, device) -> tuple:
     """(nchunks, tiles_per_chunk): token tiles of a sample are spread
     over enough blocks that every SM gets about two."""
     ntiles = -(-n // TOKEN_TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = _sms(index)
     want = min(ntiles, max(1, -(-2 * sms // bsz)))
     tpc = -(-ntiles // want)
     return -(-ntiles // tpc), tpc
@@ -155,14 +170,16 @@ def linear_attention_ctx(k, v, dim_head: int = DIM_HEAD):
     (exp(k - m)^T v) / sum exp(k - m), m the max over tokens; dim_head
     a multiple of HEAD_STEP."""
     _check_kernel((k, v), dim_head)
+    k, v = _build.aligned(k), _build.aligned(v)   # 16-byte loads
     bsz, n, hd = k.shape
     nchunks, tpc = _chunks(bsz, n, k.device)
-    f32 = dict(dtype=torch.float32, device=k.device)
-    part_m = torch.empty((bsz, nchunks, hd), **f32)
-    part_s = torch.empty((bsz, nchunks, hd), **f32)
-    part_a = torch.empty((bsz, nchunks, hd // dim_head, dim_head, dim_head),
-                         **f32)
-    ctx = torch.empty((bsz, hd, hd), **f32)
+    # the partials (m, s, the heads' blocks of A) in one scratch tensor
+    slots = bsz * nchunks
+    scratch = torch.empty(slots * (2 * hd + hd * dim_head), dtype=torch.float32,
+                          device=k.device)
+    part_m, part_s, part_a = scratch.split([slots * hd, slots * hd,
+                                            slots * hd * dim_head])
+    ctx = torch.empty((bsz, hd, hd), dtype=torch.float32, device=k.device)
     lib = _lib()
     LAUNCHES["lin_ctx"] += 1
     p = _build.ptr
@@ -182,6 +199,7 @@ def linear_attention_out(q, ctx, dim_head: int = DIM_HEAD):
             or ctx.device != q.device or not ctx.is_contiguous()):
         raise ValueError(f"ctx must be a contiguous float32 ({bsz}, {hd}, {hd}) "
                          f"tensor on q's device")
+    q = _build.aligned(q)
     out = torch.empty_like(q)
     lib = _lib()
     LAUNCHES["lin_out"] += 1

@@ -45,6 +45,34 @@ def test_ptxas_report_reads_the_kept_log(build_dir):
          "spill_loads": 12, "registers": 32}]
 
 
+CALLEE_LOG = """\
+ptxas info    : Compiling entry function '_Z6kernelv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 16 barriers
+ptxas info    : Function properties for _Z5phasev
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Function properties for _Z5otherv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_counts_a_called_functions_spills(build_dir):
+    """A function that is not inlined gets its own properties line after
+    its kernel's; its spill bytes count as the kernel's and leave the
+    next kernel's alone."""
+    target = _build._target("attention_block")
+    target.write_bytes(b"")
+    target.with_suffix(".log").write_text(CALLEE_LOG)
+    assert _build.ptxas_report("attention_block") == [
+        {"kernel": "_Z6kernelv", "spill_stores": 4, "spill_loads": 8,
+         "registers": 128},
+        {"kernel": "_Z5otherv", "spill_stores": 0, "spill_loads": 0,
+         "registers": 64}]
+
+
 def test_a_library_without_its_log_is_rebuilt(build_dir, monkeypatch):
     """build_log raises before a build; a library whose log is missing
     goes back to nvcc (here a stand-in that fails), one with its log is
@@ -78,11 +106,11 @@ def test_a_header_edit_names_another_library(build_dir, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", ["conv3x3", "winograd", "probe_cmajor_conv",
                                   "convres_fwd", "convres_bwd", "attention_block",
-                                  "int8_conv", "convres_general"])
+                                  "int8_conv", "convres_general", "linear_attention"])
 def test_tensor_core_kernels_share_one_copy_of_the_fragment_helpers(name):
-    """K5, K6, P4, K2, K3, K1a/K1b, Q1 and K2/K3's width-general route
-    include csrc/mma_sm90.cuh and define none of its helpers themselves,
-    so they cannot drift apart."""
+    """K5, K6, P4, K2, K3, K1a/K1b/K1c, Q1, K2/K3's width-general route
+    and K4 include csrc/mma_sm90.cuh and define none of its helpers
+    themselves, so they cannot drift apart."""
     source = (_build.CSRC / f"{name}.cu").read_text()
     assert '#include "mma_sm90.cuh"' in source
     for helper in ("cp_async16(", "ldmatrix_x4(", "ldmatrix_x4_trans(",
@@ -185,6 +213,73 @@ def test_general_route_runs_bf16_on_the_tensor_cores():
                  "conv_wgrad(const T* __restrict__ in"):
         body = _body(source, head)
         assert "fmaf(" in body and "mma_bf16(" not in body, head
+
+
+def test_one_pass_attention_runs_bf16_through_the_two_pass_items():
+    """csrc/attention_block.cu's bf16 one-pass entry launches
+    block_1p_mma_kernel cooperatively, and that kernel runs pass A's and
+    pass B's work through the same item loops and item functions as
+    ctx_mma_kernel and out_mma_kernel (one copy of each, holding the
+    mma.sync products), with the reduce and the f32 fold between three
+    grid barriers; f32 keeps the FMA kernel block_1p_kernel."""
+    source = (_build.CSRC / "attention_block.cu").read_text()
+    # each pass's loop over its items calls its item function, once
+    for head, call, n in (("ctx_mma_items(const bf16* x", "ctx_mma_item<WIDE, CPL>(", 1),
+                          ("out_mma_items(const bf16* x", "out_mma_item<WIDE, NT>(", 2)):
+        assert _body(source, head).count(call) == n, head   # pass B: either order
+    # the two-pass kernels and the one-pass kernel's passes run those loops
+    for head, call in (("ctx_mma_kernel(const bf16* x", "ctx_mma_items<WIDE, CPL>("),
+                       ("ctx_phase_1p(const bf16* x", "ctx_mma_items<WIDE, CPL>("),
+                       ("out_mma_kernel(const bf16* x", "out_mma_items<WIDE, NT, false>("),
+                       ("block_1p_mma_kernel(const bf16* x", "out_mma_items<WIDE, NT, true>(")):
+        body = _body(source, head)
+        assert call in body and "mma_k<" not in body, head
+    one_pass = _body(source, "block_1p_mma_kernel(const bf16* x")
+    for call in ("ctx_phase_1p<WIDE, CPL>(", "out_mma_items<WIDE, NT, true>(",
+                 "reduce_phase_1p(", "fold_phase_1p("):
+        assert one_pass.count(call) == 1, call
+    assert "reduce_head(" in _body(source, "void reduce_phase_1p(")
+    assert "fold_rows<bf16>(" in _body(source, "void fold_phase_1p(")
+    assert one_pass.count("this_grid().sync()") == 3 and "mma_k<" not in one_pass
+    for head in ("ctx_mma_item(const CtxSmem& s", "out_mma_item(const OutSmem& s"):
+        body = _body(source, head)
+        assert "mma_k<" in body and "fmaf(" not in body, head
+    assert "block_1p_mma_kernel<" in _body(source, "int with_1p_kernel(")
+    launch = _body(source, "int launch_1p_mma(")
+    assert "cudaLaunchCooperativeKernel(" in launch and "with_1p_kernel(" in launch
+    entry = _body(source, "int attn_1p(const void* x")
+    assert "launch_1p_mma(" in entry and "launch_1p<float>(" in entry
+    fma = _body(source, "block_1p_kernel(const T* x")
+    assert "ctx_partial_item<T>(" in fma and "out_tile<T, -1>(" in fma
+    assert "mma" not in fma
+
+
+def test_linear_attention_runs_bf16_on_the_tensor_cores():
+    """csrc/linear_attention.cu's bf16 entries launch lin_ctx_mma and
+    lin_out_mma, whose products are mma.sync on rows a cp.async ring
+    brings (the ctx kernel's p as a bf16 pair, hi and lo, both
+    multiplied); f32 launches the FMA kernels lin_ctx_partial and
+    lin_out."""
+    source = (_build.CSRC / "linear_attention.cu").read_text()
+    for head in ("lin_ctx_mma(const bf16* __restrict__ k",
+                 "lin_out_mma(const bf16* __restrict__ q"):
+        body = _body(source, head)
+        for op in ("mma_bf16(", "ldmatrix_x4", "load_rows(", "cp_async_commit()"):
+            assert op in body, (head, op)
+        assert "fmaf(" not in body, head
+    ctx = _body(source, "lin_ctx_mma(const bf16* __restrict__ k")
+    for op in ("ldmatrix_x4_trans(ah[i]", "ldmatrix_x4_trans(al[i]",
+               "__floats2bfloat162_rn(p.x - hf.x, p.y - hf.y)"):
+        assert op in ctx, op
+    for head in ("lin_ctx_partial(const T* __restrict__ k",
+                 "lin_out(const T* __restrict__ q"):
+        body = _body(source, head)
+        assert "fmaf(" in body and "mma_bf16(" not in body, head
+    entries = source[source.index('extern "C" {'):]
+    for launch in ("ctx_launch_mma(", "out_launch_mma(", "ctx_launch<float>(",
+                   "out_launch<float>("):
+        assert entries.count(launch) == 1, launch
+    assert "__nv_bfloat16>(" not in entries
 
 
 @pytest.mark.parametrize("name", ["convres_fwd", "convres_bwd"])

@@ -550,9 +550,13 @@ def test_winograd_weight_transform_matches_plain(card, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bsz,n,hd", [(2, 1000, 32), (3, 4096, 128),
-                                      (1, 777, 64), (2, 100, 128)])
+                                      (1, 777, 64), (2, 100, 128),
+                                      (8, 16384, 128)])
 def test_linear_attention_kernel_matches_plain(card, dtype, bsz, n, hd):
-    """K4; N not a multiple of the 64-token tile in three of the four."""
+    """K4; N not a multiple of the 64-token tile in three of the five;
+    the last is the x2 UNet's 128^2 site at B = 8.  ctx is held to the
+    f32 tolerance in either dtype (in bf16 the kernel multiplies p as a
+    bf16 pair)."""
     r = _rand(card, n + hd)
     q, k, v = (r(bsz, n, hd).to(dtype) for _ in range(3))
     before = dict(la.LAUNCHES)
@@ -650,6 +654,18 @@ def test_attention_one_pass_matches_plain(card, dtype, bsz, n, c, monkeypatch):
     assert ab.LAUNCHES["attn_ctx"] == before["attn_ctx"]
     _close(block, two_pass, dtype)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bsz,n,c", [(8, 4096, 128), (2, 1000, 96), (2, 600, 512)])
+def test_attention_one_pass_is_deterministic(card, bsz, n, c):
+    """K1c twice on the same bf16 input gives the same bits: pass A's
+    partials summed in chunk order, the fold in a fixed order, no
+    atomics (C = 512: the WIDE items)."""
+    x, g, b, b_out, _, w_out, w_q, w_kv = _attn_args(card, bsz, n, c,
+                                                     torch.bfloat16, 7)
+    w_out = w_out.contiguous()
+    first = ab.attention_1pass(x, g, b, w_kv, w_q, w_out, b_out)
+    assert torch.equal(ab.attention_1pass(x, g, b, w_kv, w_q, w_out, b_out), first)
 
 
 # ---------------------------------------------------------------- probes P1-P4

@@ -70,3 +70,30 @@ def test_gradients_match_jax():
         # both backwards are autograd through the same f32 reference
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-5)
+
+
+def test_a_bf16_pair_of_p_keeps_ctx_at_f32_accuracy():
+    """The bf16 ctx kernel's rule (csrc/linear_attention.cu, lin_ctx_mma):
+    p = exp(k - m) split into a bf16 pair, hi = bf16(p) and lo = bf16(p -
+    hi), each multiplied by v (exact in bf16) with f32 sums, gives
+    ctx_plain (f32 products) within 1e-5 of its largest magnitude on
+    skewed keys, where bf16(p) alone misses that bound."""
+    rng = np.random.default_rng(7)
+    k = 2.0 * rng.standard_normal((2, 2048, 128)).astype(np.float32)
+    k[:, 300:340] += 6.0     # a few tokens hold most of the softmax's mass
+    v = rng.standard_normal((2, 2048, 128)).astype(np.float32)
+    k, v = (torch.from_numpy(t).bfloat16() for t in (k, v))
+    want = la.ctx_plain(k, v)
+    kf = la._split(k, 32).float()
+    p = torch.exp(kf - kf.amax(dim=1, keepdim=True))
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    vf = la._split(v, 32).float()
+
+    def ctx_of(*parts):
+        a = sum(torch.einsum("bnhd,bnhe->bhde", part, vf) for part in parts)
+        return a / p.sum(dim=1)[..., None]
+
+    bound = 1e-5 * float(want.abs().max())
+    assert float((ctx_of(hi, lo) - want).abs().max()) <= bound
+    assert float((ctx_of(hi) - want).abs().max()) > bound
