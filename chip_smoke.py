@@ -63,12 +63,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (generate_samples, cut to CHAIN_1P_STEPS steps) with FORCE_ONE_PASS
    set and the counters zeroed, checked against the two-pass chain from
    the same seed;
-10. the probes P1-P4 (dddpm_tpu_torch/probes/): the ptxas lines of P4's
-   conv and of P2's two copies (no spill allowed), then, with the counters
-   zeroed just before and read just after, each probe's main() at the
-   TPU probe's default size holds every variant of its kernels against
-   its plain version on the card, then times it (P4 beside cuDNN on
-   NCHW, the entry's `library_ms`, and on channels_last,
+10. the probes P1-P4 (dddpm_tpu_torch/probes/): the ptxas lines of P1's
+   two passes, P4's conv and P2's two copies (no spill allowed), then,
+   with the counters zeroed just before and read just after, each
+   probe's main() at the TPU probe's default size holds every variant of
+   its kernels against its plain version on the card, then times it (P1
+   beside the shipped K1a and K1b alone, the entries' `shipped_ms`; P4
+   beside cuDNN on NCHW, the entry's `library_ms`, and on channels_last,
    `library_cl_ms`); then K3's ablation (probes/convres_bwd_ablation.py:
    K3 with parts compiled out, timed at the x3 training shapes) and
    K1a/K1b's (probes/attention_ablation.py: the same at the x2 sites,
@@ -323,9 +324,11 @@ PER = {("attn_ctx", "x2_sample"): f"x2 chain step at B={B}",
        **{(name, "x3_train"): _PER_TRAIN
           for name in ("attn_ctx", "attn_out", "convres_fwd", "convres_bwd")},
        ("probe_attn_ctx", "probes"):
-           _PER_PROBE + "B=96, 128^2 tokens, C=128, bf16: pass A full, G=1",
+           _PER_PROBE + "B=96, 128^2 tokens, C=128, bf16: pass A full, G=1; "
+           "shipped_ms the shipped K1a alone at the same shape",
        ("probe_attn_out", "probes"):
-           _PER_PROBE + "B=96, 128^2 tokens, C=128, bf16: pass B full, G=1",
+           _PER_PROBE + "B=96, 128^2 tokens, C=128, bf16: pass B full, G=1; "
+           "shipped_ms the shipped K1b alone at the same shape",
        ("probe_copy", "probes"):
            _PER_PROBE + "B=96, 128^2 tokens, C=128, bf16: base-8192",
        ("probe_copy_async", "probes"):
@@ -1303,6 +1306,8 @@ def phase_probes(results):
     with the counters zeroed just before and read just after.  Each
     main() checks every variant against its plain version on the card
     before timing it, and raises on a mismatch."""
+    ptxas_check("probe_attention", "probe_ctx_kernel")   # no kernel of it spills
+    ptxas_check("probe_attention", "probe_out_kernel")
     ptxas_check("probe_cmajor_conv", "cmajor_conv_kernel")
     ptxas_check("probe_copy", "copy_async_kernel")
     ptxas_check("probe_copy", "copy_kernel")
@@ -1339,7 +1344,7 @@ def phase_probes(results):
             max_abs_err=h["max_abs_err"], bytes=h["cost"]["bytes"],
             flops=h["cost"]["flops"], launches=launched[name],
             library_ms=h["library_ms"],
-            **{k: h[k] for k in ("library_cl_ms",) if k in h})
+            **{k: h[k] for k in ("library_cl_ms", "shipped_ms") if k in h})
 
 
 # phase 11: the x2 checkpoint the evaluation path reads; X2_CONFIG on
@@ -2434,7 +2439,8 @@ def main() -> int:
                      else "operations"),
         "library_ms": r["library_ms"],
         **{k: r[k] for k in ("identity_ms", "graph_ms", "library_graph_ms",
-                             "library_cl_ms", "two_pass_ms", "two_pass_graph_ms")
+                             "library_cl_ms", "two_pass_ms", "two_pass_graph_ms",
+                             "shipped_ms")
            if k in r},
     } for (name, path), r in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

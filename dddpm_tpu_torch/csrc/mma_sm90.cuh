@@ -2,8 +2,9 @@
 // ldmatrix, stmatrix / movmatrix and mma.sync.m16n8k16 with bf16
 // operands and f32 sums.  Included by winograd.cu (K6), conv3x3.cu (K5),
 // convres_fwd.cu (K2), convres_bwd.cu (K3, through convres_sm90.cuh),
-// attention_block.cu (K1a, K1b), probe_cmajor_conv.cu (P4) and
-// int8_conv.cu (Q1), so that they use one copy of each.
+// attention_block.cu (K1a, K1b), probe_cmajor_conv.cu (P4),
+// int8_conv.cu (Q1) and probe_attention.cu (P1), so that they use one
+// copy of each.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,6 +41,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* p) 
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+
+// stores four 8 x 8 b16 matrices, the inverse of ldmatrix_x4: register j
+// holds matrix j in its fragment layout, and lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void stmatrix_x4(void* p, const unsigned r[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1,%2,%3,%4};\n"
+               ::"r"(smem_addr(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
 }
 
 // stores four 8 x 8 b16 matrices transposed: register j holds matrix j

@@ -15,7 +15,11 @@ Pass B variants:
 Each runs with G in {1, 4, 8} samples a block and token tiles of
 pick_tile(N, max(tn_target // G, 512)), the probe's own rule, so every
 G gives the same block count at the default size (192: 1.45 waves on
-132 SMs).  The kernels are csrc/probe_attention.cu.
+132 SMs).  The kernels are csrc/probe_attention.cu: the products on the
+tensor cores (mma.sync), as in the shipped K1a / K1b, whose times alone
+at the same shape main() prints beside the full variants (K1a forms
+only the four heads' 32 x 32 blocks of A, a quarter of pass A's second
+product; K1b computes what pass B full computes).
 
 Pass A is timed alone.  The TPU probe chained it into B-noln and
 subtracted B-noln's time only because its lax.scan needed an x-shaped
@@ -34,8 +38,9 @@ TOL_CTX of ctx's own largest magnitude (the same bf16 roundings of LN,
 p and v, sums in another order; looser for noexp, whose s can cancel),
 the dma variants exactly.  LN's g and b are far from 1 and 0, so that
 LN moves both outputs; before the variants, main() shows on its own
-inputs that these checks fail a pass without LN and a reduce that
-keeps one token tile.
+inputs that these checks fail a pass without LN, a reduce that keeps
+one token tile, and a pass A whose A is K1a's (the heads' blocks alone)
+or transposed.
 """
 from __future__ import annotations
 
@@ -63,6 +68,8 @@ TOL_CTX = {"full": 1e-3, "noexp": 1e-2, "noln": 1e-3, "payload": 1e-3}
 
 # launches of each C entry; chip_smoke.py reads these
 LAUNCHES = {"probe_attn_ctx": 0, "probe_attn_out": 0}
+# the shipped kernel main() times beside each entry's full variant
+SHIPPED = {"probe_attn_ctx": "K1a", "probe_attn_out": "K1b"}
 
 
 def pick_tile(n: int, target: int = 4096) -> int:
@@ -97,12 +104,20 @@ def layer_norm_mxu(x, g, b):
 def ctx_plain(x, g, b, w_kv, variant: str = "full"):
     """Plain version of pass A (what probe_attn_ctx computes), any dtype:
     (B, hidden, hidden) f32."""
-    bsz, _, _ = x.shape
+    if variant == "dma":
+        hidden = w_kv.shape[1] // 2
+        return torch.zeros((x.shape[0], hidden, hidden), dtype=torch.float32,
+                           device=x.device)
+    a, s = ctx_parts(x, g, b, w_kv, variant)
+    return a / s.clamp(min=1.0)[..., None]
+
+
+def ctx_parts(x, g, b, w_kv, variant: str = "full"):
+    """Pass A's plain sums before the division, any variant but dma: A =
+    p^T v (B, hidden, hidden) and s = sum of p (B, hidden), f32."""
+    bsz = x.shape[0]
     hidden = w_kv.shape[1] // 2
     dt = x.dtype
-    if variant == "dma":
-        return torch.zeros((bsz, hidden, hidden), dtype=torch.float32,
-                           device=x.device)
     ln = x if variant in ("noln", "payload") else layer_norm_mxu(x, g, b).to(dt)
     kv = ln.float() @ w_kv.to(dt).float()
     k = kv[..., :hidden]
@@ -114,7 +129,7 @@ def ctx_plain(x, g, b, w_kv, variant: str = "full"):
             p = torch.exp(p)
         s = p.sum(dim=1)
     a = torch.einsum("bnh,bne->bhe", p.to(dt).float(), kv[..., hidden:].to(dt).float())
-    return a / s.clamp(min=1.0)[..., None]
+    return a, s
 
 
 def out_plain(x, g, b, w_eff, b_out, variant: str = "full"):
@@ -167,6 +182,7 @@ def ctx_kernel(x, g, b, w_kv, variant: str, group: int, tn: int):
     tokens a block; (B, 128, 128) f32."""
     c = x.shape[-1]
     _check(x, g, b, [(w_kv, (c, 2 * HIDDEN))], group, tn)
+    x, w_kv = _build.aligned(x), _build.aligned(w_kv)   # 16-byte loads
     bsz, n, _ = x.shape
     f32 = dict(dtype=torch.float32, device=x.device)
     part_a = torch.empty((bsz, n // tn, HIDDEN, HIDDEN), **f32)
@@ -187,6 +203,7 @@ def out_kernel(x, g, b, w_eff, b_out, variant: str, group: int, tn: int):
     _check(x, g, b, [(w_eff, (bsz, c, c))], group, tn, OUT_WIDTHS)
     if b_out.shape != (c,) or b_out.dtype != torch.float32 or b_out.device != x.device:
         raise ValueError("b_out must be a float32 (C,) tensor on x's device")
+    x, w_eff = _build.aligned(x), _build.aligned(w_eff)   # 16-byte loads
     y = torch.empty_like(x)
     lib = _lib()
     LAUNCHES["probe_attn_out"] += 1
@@ -274,16 +291,33 @@ def inputs(bs, n, c, gen):
     return x, g, b, w_qkv, w_out, b_out, w_kv, w_eff
 
 
+def ctx_faults(ctx, s):
+    """Two wrong pass A's made from a ctx = A / max(s, 1) (B, 128, 128)
+    and its s (B, 128): K1a's A (the heads' 32 x 32 diagonal blocks
+    alone) and A transposed, each divided by max(s, 1) by A's row."""
+    den = s.clamp(min=1.0)[..., None]
+    a = ctx * den
+    mask = torch.block_diag(*[torch.ones(32, 32, device=a.device)] * (HIDDEN // 32))
+    return {"pass A with K1a's head mask": a * mask / den,
+            "pass A with A transposed": a.transpose(-1, -2) / den}
+
+
 def check_sees_faults(x, g, b, w_kv, w_eff, b_out, tn):
     """Raises unless, on these inputs, the full variants' checks fail a
     pass A without LN, a pass A whose reduce keeps only the first token
-    tile of tn (when there are more), and a pass B without LN."""
-    want = ctx_plain(x, g, b, w_kv)
+    tile of tn (when there are more), a pass A whose A is head-masked
+    (K1a's) or transposed, and a pass B without LN."""
+    a, s = ctx_parts(x, g, b, w_kv)
+    want = a / s.clamp(min=1.0)[..., None]
+    del a
+    tol = ctx_tol(want)
     _util.check_fails("pass A without LN", ctx_plain(x, g, b, w_kv, "noln"),
-                      want, ctx_tol(want))
+                      want, tol)
     if tn < x.shape[1]:
         _util.check_fails("pass A over one token tile",
-                          ctx_plain(x[:, :tn], g, b, w_kv), want, ctx_tol(want))
+                          ctx_plain(x[:, :tn], g, b, w_kv), want, tol)
+    for name, wrong in ctx_faults(want, s).items():
+        _util.check_fails(name, wrong, want, tol)
     del want
     want = out_plain(x, g, b, w_eff, b_out)
     _util.check_fails("pass B without LN", out_plain(x, g, b, w_eff, b_out, "noln"),
@@ -291,9 +325,10 @@ def check_sees_faults(x, g, b, w_kv, w_eff, b_out, tn):
 
 
 def main(argv=None) -> dict:
-    """Checks, then times, the shipped route, x + 1 and every variant;
-    returns, per kernel, its full variant at the first G (ms, plain_ms,
-    library_ms, max_abs_err over every variant, cost)."""
+    """Checks, then times, the shipped route, K1a and K1b alone, x + 1
+    and every variant; returns, per kernel, its full variant at the
+    first G (ms, plain_ms, library_ms, max_abs_err over every variant,
+    cost) and the shipped kernel of the same pass alone (shipped_ms)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--bs", type=int, default=96)
     p.add_argument("--shape", type=int, nargs=2, default=[128, 128],
@@ -324,6 +359,22 @@ def main(argv=None) -> dict:
         ms = _util.cuda_ms(shipped, iters=5, reps=2)
         print(_util.row(f"shipped block ({route})", ms, costs["pass_b"]["full"],
                         "bytes of pass B"))
+        # the shipped passes alone at this shape: K1a (pass A with the
+        # heads' blocks of A alone) and K1b (pass B full's function)
+        shipped_ms = {}
+        for name, kind, run, ref in (
+                ("probe_attn_ctx", "pass_a", lambda: ab.attention_ctx(x, g, b, w_kv),
+                 lambda: ab.ctx_reference(x, g, b, w_kv)),
+                ("probe_attn_out", "pass_b",
+                 lambda: ab.attention_out(x, g, b, w_eff, b_out),
+                 lambda: ab.out_reference(x, g, b, w_eff, b_out))):
+            label = f"{SHIPPED[name]} alone (shipped pass {kind[-1].upper()})"
+            want = ref()
+            _util.check(label, run(), want, tol(want))
+            del want
+            shipped_ms[name] = _util.cuda_ms(run, iters=5, reps=2)
+            print(_util.row(label, shipped_ms[name], costs[kind]["full"],
+                            f"bytes and operations of {kind} full"))
         ms = _util.cuda_ms(lambda: x + 1, iters=5, reps=2)
         print(_util.row("x + 1 (read/write baseline)", ms, costs["pass_b"]["dma"]))
         check_sees_faults(x, g, b, w_kv, w_eff, b_out, token_tile(n, c, 1))
@@ -352,11 +403,15 @@ def main(argv=None) -> dict:
                 label = f"{kind[-1].upper()}-{v} G={grp}"
                 print(_util.row(label, ms, costs[kind][v],
                                 f"tn {tn}, {blocks} blocks, err {err:.2e}"))
+                if v == "full":
+                    print(f"  {kind} full / {SHIPPED[name]} alone "
+                          f"({shipped_ms[name]:.3f} ms): {ms / shipped_ms[name]:.2f}x")
                 if v == "full" and grp == args.groups[0]:
                     plain_ms = _util.cuda_ms(lambda: plain(v), iters=2, reps=1,
                                              warmup=1)
                     heads[name] = dict(ms=ms, plain_ms=plain_ms,
-                                       cost=costs[kind][v], library_ms=None)
+                                       cost=costs[kind][v], library_ms=None,
+                                       shipped_ms=shipped_ms[name])
                     print(f"  plain version of {kind} full: {plain_ms:.3f} ms")
     for name, head in heads.items():
         head["max_abs_err"] = errs[name]

@@ -106,15 +106,16 @@ def test_a_header_edit_names_another_library(build_dir, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", ["conv3x3", "winograd", "probe_cmajor_conv",
                                   "convres_fwd", "convres_bwd", "attention_block",
-                                  "int8_conv", "convres_general", "linear_attention"])
+                                  "int8_conv", "convres_general", "linear_attention",
+                                  "probe_attention"])
 def test_tensor_core_kernels_share_one_copy_of_the_fragment_helpers(name):
-    """K5, K6, P4, K2, K3, K1a/K1b/K1c, Q1, K2/K3's width-general route
-    and K4 include csrc/mma_sm90.cuh and define none of its helpers
-    themselves, so they cannot drift apart."""
+    """K5, K6, P4, K2, K3, K1a/K1b/K1c, Q1, K2/K3's width-general route,
+    K4 and P1a/P1b include csrc/mma_sm90.cuh and define none of its
+    helpers themselves, so they cannot drift apart."""
     source = (_build.CSRC / f"{name}.cu").read_text()
     assert '#include "mma_sm90.cuh"' in source
     for helper in ("cp_async16(", "ldmatrix_x4(", "ldmatrix_x4_trans(",
-                   "stmatrix_x4_trans(", "mma_bf16("):
+                   "stmatrix_x4(", "stmatrix_x4_trans(", "mma_bf16("):
         assert f"void {helper}" not in source, helper
 
 
@@ -280,6 +281,39 @@ def test_linear_attention_runs_bf16_on_the_tensor_cores():
                    "out_launch<float>("):
         assert entries.count(launch) == 1, launch
     assert "__nv_bfloat16>(" not in entries
+
+
+def test_attention_probe_runs_on_the_tensor_cores():
+    """csrc/probe_attention.cu (P1a, P1b): both passes' products are
+    mma.sync (pass A's second, A += p^T v, reading p transposed), with
+    no fmaf( anywhere; every variant of either pass, dma included, takes
+    x through the one cp.async load function (load_sub, called before
+    the variant's own work, twice a kernel: the ring's first sub-tile
+    and each next one); the reduce sums the partials in tile order, with
+    no atomics."""
+    source = (_build.CSRC / "probe_attention.cu").read_text()
+    assert "fmaf(" not in source and "atomicAdd" not in source
+    load = _body(source, "void load_sub(bf16* dst")
+    assert "cp_async16(" in load
+    assert "mma_bf16(" in _body(source, "void mma_rows(float")
+    # the dma variants' own work: pass A folds the landed words, pass B
+    # stores them through store_sub, which every pass-B variant ends with
+    for head, dma in (("probe_ctx_kernel(const bf16* x", "hx ^= v.x ^ v.y ^ v.z ^ v.w"),
+                      ("probe_out_kernel(const bf16* x", "store_sub(")):
+        body = _body(source, head)
+        assert body.count("load_sub(") == 2 and body.count(dma) == 1, head
+        assert "cp_async16(" not in body and "uint4*>(x" not in body, head
+        second = body.index("load_sub(", body.index("load_sub(") + 1)
+        assert second < body.index(dma) and second < body.index("mma_rows<"), head
+    ctx = _body(source, "probe_ctx_kernel(const bf16* x")
+    assert "ldmatrix_x4_trans(a[i]" in ctx and "mma_bf16(acc_a[" in ctx
+    # the LN's row sums are products with ones too, in both passes
+    assert "mma_bf16(s1, a, ONES, ONES)" in _body(source, "void frag_sums(const bf16* A")
+    assert "ln_partials(cur" in ctx and "ln_apply(cur" in ctx
+    assert "frag_sums<" in _body(source, "probe_out_kernel(const bf16* x")
+    reduce = _body(source, "probe_ctx_reduce(const float* part_a")
+    assert "for (int j = 0; j < nt; ++j)" in reduce
+    assert "slot = (size_t)bi * nt + j" in reduce
 
 
 @pytest.mark.parametrize("name", ["convres_fwd", "convres_bwd"])

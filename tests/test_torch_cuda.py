@@ -723,6 +723,36 @@ def test_probe_attention_ctx_check_fails_a_wrong_kernel(card, n, c, tn_target):
             pu.check("wrong pass A", wrong, want, p1.ctx_tol(want))
 
 
+@pytest.mark.parametrize("n,c,tn_target", P1_CASES)
+def test_probe_attention_ctx_check_fails_a_masked_or_transposed_a(card, n, c,
+                                                                   tn_target):
+    """The kernel's own ctx passes the full variant's check; made K1a's
+    (the off-diagonal 32 x 32 blocks of its A set to 0) or with its A
+    transposed, it fails it: a kernel that reused K1a's head-masked
+    product, or read p and v the wrong way round, would not pass."""
+    x, g, b, _, w_kv, _ = _p1_inputs(card, 8, n, c)
+    got = p1.pass_a(x, g, b, w_kv, "full", 1, tn_target)
+    a, s = p1.ctx_parts(x, g, b, w_kv)
+    want = a / s.clamp(min=1.0)[..., None]
+    torch.cuda.synchronize()
+    tol = p1.ctx_tol(want)
+    pu.check("pass A full", got, want, tol)
+    for name, wrong in p1.ctx_faults(got, s).items():
+        with pytest.raises(AssertionError, match="above tol"):
+            pu.check(name, wrong, want, tol)
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("variant", ["full", "payload"])
+@pytest.mark.parametrize("n,c,tn_target", P1_CASES)
+def test_probe_attention_ctx_is_deterministic(card, variant, group, n, c, tn_target):
+    """Pass A twice on the same input gives the same bits: the partials
+    of each (sample, token tile) summed in tile order, no atomics."""
+    x, g, b, _, w_kv, _ = _p1_inputs(card, 8, n, c)
+    first = p1.pass_a(x, g, b, w_kv, variant, group, tn_target)
+    assert torch.equal(p1.pass_a(x, g, b, w_kv, variant, group, tn_target), first)
+
+
 @pytest.mark.parametrize("group", [1, 4, 8])
 @pytest.mark.parametrize("variant", ["full", "noln", "dma"])
 @pytest.mark.parametrize("n,c,tn_target", P1_CASES)

@@ -80,20 +80,23 @@ def _assert_close(got, want, frac):
 # ------------------------------------------------------------------ P1
 
 P1_SHAPE = (4, 1024, 128)    # B, N, C; tn_target 512 gives 2 token tiles
+# C = 256, the widest both passes take: LN's squares summed in f32, not
+# rounded to bf16 first as at C <= 128
+P1_SHAPE_256 = (2, 1024, 256)
 P1_TN_TARGET = 512
 JAX_A_NAME = {"full": "exp"}
 
 
-def _p1_data(seed):
+def _p1_data(seed, shape=P1_SHAPE):
     rng = np.random.default_rng(seed)
-    bsz, _, c = P1_SHAPE
-    return (_f(rng, *P1_SHAPE), 1.0 + _f(rng, c, scale=0.1), _f(rng, c, scale=0.1),
+    bsz, _, c = shape
+    return (_f(rng, *shape), 1.0 + _f(rng, c, scale=0.1), _f(rng, c, scale=0.1),
             _f(rng, c, 256, scale=0.1), _f(rng, bsz, c, c, scale=0.1),
             _f(rng, c, scale=0.1))
 
 
-def _p1_pass_a(variant, group, jdt, tdt, seed=0):
-    x, g, b, w_kv, _, _ = _p1_data(seed)
+def _p1_pass_a(variant, group, jdt, tdt, seed=0, shape=P1_SHAPE):
+    x, g, b, w_kv, _, _ = _p1_data(seed, shape)
     (jx, jg, jb, jw), (tx, tg, tb, tw) = _cast((x, g, b, w_kv), jdt, tdt)
     want = jp1.make_pass_a(JAX_A_NAME.get(variant, variant), group,
                            P1_TN_TARGET)(jx, jg, jb, jw)
@@ -101,8 +104,8 @@ def _p1_pass_a(variant, group, jdt, tdt, seed=0):
     return got, want
 
 
-def _p1_pass_b(variant, group, jdt, tdt, seed=1):
-    x, g, b, _, w_eff, b_out = _p1_data(seed)
+def _p1_pass_b(variant, group, jdt, tdt, seed=1, shape=P1_SHAPE):
+    x, g, b, _, w_eff, b_out = _p1_data(seed, shape)
     (jx, jg, jb, jw, jbo), (tx, tg, tb, tw, tbo) = _cast(
         (x, g, b, w_eff, b_out), jdt, tdt)
     want = jp1.make_pass_b(variant, group, P1_TN_TARGET)(jx, jg, jb, jw, jbo)
@@ -134,6 +137,36 @@ def test_p1_full_passes_match_jax_probe_bf16():
     # apart moves a product of A by ~0.4%, averaged over 1024 tokens
     _assert_close(got, want, 1e-2)
     got, want = _p1_pass_b("full", 1, jnp.bfloat16, torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    # y rounded to bf16 on both sides: at most one ulp (0.4-0.8%) apart
+    _assert_close(got, want, 1e-2)
+
+
+@pytest.mark.parametrize("variant", p1.PASS_A)
+def test_p1_pass_a_matches_jax_probe_f32_c256(variant):
+    got, want = _p1_pass_a(variant, 1, jnp.float32, torch.float32,
+                           shape=P1_SHAPE_256)
+    assert got.shape == (P1_SHAPE_256[0], 128, 128)
+    # f32 both sides: sums over 1024 tokens and 256 channels in another order
+    _assert_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("variant", p1.PASS_B)
+def test_p1_pass_b_matches_jax_probe_f32_c256(variant):
+    got, want = _p1_pass_b(variant, 1, jnp.float32, torch.float32,
+                           shape=P1_SHAPE_256)
+    assert got.shape == P1_SHAPE_256
+    # f32 both sides: sums over C in another order
+    _assert_close(got, want, 1e-5)
+
+
+def test_p1_full_passes_match_jax_probe_bf16_c256():
+    got, want = _p1_pass_a("full", 1, jnp.bfloat16, torch.bfloat16,
+                           shape=P1_SHAPE_256)
+    # the same roundings as at C = 128 (LN, p and v to bf16)
+    _assert_close(got, want, 1e-2)
+    got, want = _p1_pass_b("full", 1, jnp.bfloat16, torch.bfloat16,
+                           shape=P1_SHAPE_256)
     assert got.dtype == torch.bfloat16
     # y rounded to bf16 on both sides: at most one ulp (0.4-0.8%) apart
     _assert_close(got, want, 1e-2)
