@@ -64,11 +64,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    set and the counters zeroed, checked against the two-pass chain from
    the same seed;
 10. the probes P1-P4 (dddpm_tpu_torch/probes/): the ptxas lines of P1's
-   two passes, P4's conv and P2's two copies (no spill allowed), then,
-   with the counters zeroed just before and read just after, each
-   probe's main() at the TPU probe's default size holds every variant of
+   two passes, P4's conv, P3's seven variants and P2's two copies (no
+   spill allowed), then, with the counters zeroed just before and read
+   just after, each probe's main() at the TPU probe's default size holds
+   every variant of
    its kernels against its plain version on the card, then times it (P1
-   beside the shipped K1a and K1b alone, the entries' `shipped_ms`; P4
+   beside the shipped K1a and K1b alone, P3 beside the shipped K2 alone
+   with each variant's ratio to it, the entries' `shipped_ms`; P4
    beside cuDNN on NCHW, the entry's `library_ms`, and on channels_last,
    `library_cl_ms`); then K3's ablation (probes/convres_bwd_ablation.py:
    K3 with parts compiled out, timed at the x3 training shapes) and
@@ -334,7 +336,8 @@ PER = {("attn_ctx", "x2_sample"): f"x2 chain step at B={B}",
        ("probe_copy_async", "probes"):
            _PER_PROBE + "B=96, 128^2 tokens, C=128, bf16: manual-8192",
        ("probe_convres", "probes"):
-           _PER_PROBE + "B=32, 256^2, cio 64, cm 32, bf16: base",
+           _PER_PROBE + "B=32, 256^2, cio 64, cm 32, bf16: base; "
+           "shipped_ms the shipped K2 alone at the same shape",
        ("probe_cmajor_conv", "probes"):
            _PER_PROBE + "B=32, C=32, 256^2, bf16; library_ms cuDNN on NCHW, "
            "library_cl_ms on channels_last"}
@@ -1309,6 +1312,7 @@ def phase_probes(results):
     ptxas_check("probe_attention", "probe_ctx_kernel")   # no kernel of it spills
     ptxas_check("probe_attention", "probe_out_kernel")
     ptxas_check("probe_cmajor_conv", "cmajor_conv_kernel")
+    ptxas_check("probe_convres", "probe_convres_kernel")   # all 7 variants
     ptxas_check("probe_copy", "copy_async_kernel")
     ptxas_check("probe_copy", "copy_kernel")
     heads = {}

@@ -1,7 +1,8 @@
 // The ConvResBlock kernels' tensor-core helpers (sm_90a): bf16 pairs, the
 // activation under CONVRES_SKIP, and a warp's implicit-GEMM pass over m16
 // pixel tiles with N = 32 on mma.sync.m16n8k16.  Included by
-// convres_fwd.cu (K2) and convres_bwd.cu (K3), so that they use one copy.
+// convres_fwd.cu (K2), convres_bwd.cu (K3) and probe_convres.cu (P3), so
+// that they use one copy.
 //
 // CONVRES_SKIP (a -D define, 0 by default) compiles parts of a kernel
 // out, by bit: 1 the products (mma), 2 mish and mish' (the identity and
@@ -61,6 +62,12 @@ __device__ __forceinline__ void mma(float c[4], const unsigned a[4], unsigned b0
   if (!(SKIP & 1)) mma_bf16(c, a, b0, b1);
 }
 
+// The A map of a MISH pass: act2 of each bf16 pair (K2's and K3's m0).
+// A pass may take another (P3's bf16 mish).
+struct Act2 {
+  __device__ __forceinline__ unsigned operator()(unsigned v) const { return act2(v); }
+};
+
 // One pass of a warp over NU m16 tiles (a_lane[0], and a_lane[1] where NU
 // is 2), N = 32: acc[u][nt] = A . B over KSTEPS k16 steps.  a_lane[u] is
 // this lane's A row address (its pixel, its k half) and a_off(s) the
@@ -68,16 +75,18 @@ __device__ __forceinline__ void mma(float c[4], const unsigned a[4], unsigned b0
 // BS-element rows, its step s at w + b_off(s): with BT its rows are k
 // ([k][n], read by ldmatrix.trans: rows s * 16 ... + 16 of the forward
 // weights), else its rows are n ([n][k], read by ldmatrix: the same
-// weights seen transposed).  With MISH, the A fragments are mish(A),
-// rounded (K2's m0).  The steps are unrolled, so that every offset is a
-// constant, and the fragments of step s + 1 are loaded before step s's
-// products are issued (the helpers' asm is volatile, so issue order is
-// source order), so that the products wait on the sums alone.
-template <bool MISH, int KSTEPS, int NU, bool BT, int BS, typename AOff, typename BOff>
+// weights seen transposed).  With MISH, the A fragments are amap(A):
+// mish(A), rounded, by default (K2's m0).  The steps are unrolled, so
+// that every offset is a constant, and the fragments of step s + 1 are
+// loaded before step s's products are issued (the helpers' asm is
+// volatile, so issue order is source order), so that the products wait
+// on the sums alone.
+template <bool MISH, int KSTEPS, int NU, bool BT, int BS, typename AOff, typename BOff,
+          typename AMap = Act2>
 __device__ __forceinline__ void gemm32_nb(float (&acc)[2][4][4],
                                           const bf16* const (&a_lane)[2],
                                           const bf16* w, AOff a_off, BOff b_off,
-                                          int lane) {
+                                          int lane, AMap amap = AMap()) {
   static_assert(KSTEPS % 2 == 0, "steps in pairs");
 #pragma unroll
   for (int u = 0; u < 2; ++u)
@@ -110,7 +119,7 @@ __device__ __forceinline__ void gemm32_nb(float (&acc)[2][4][4],
     for (int u = 0; u < NU; ++u) {
       if (MISH) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) as[u][r] = act2(as[u][r]);
+        for (int r = 0; r < 4; ++r) as[u][r] = amap(as[u][r]);
       }
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
@@ -129,22 +138,24 @@ __device__ __forceinline__ void gemm32_nb(float (&acc)[2][4][4],
 
 // gemm32_nb over the forward weights: B's step s is rows [s * 16, s * 16
 // + 16) of a [k][32] matrix of MS-element rows
-template <bool MISH, int KSTEPS, int NU, typename AOff>
+template <bool MISH, int KSTEPS, int NU, typename AOff, typename AMap = Act2>
 __device__ __forceinline__ void gemm32_n(float (&acc)[2][4][4],
                                          const bf16* const (&a_lane)[2],
-                                         const bf16* w, AOff a_off, int lane) {
+                                         const bf16* w, AOff a_off, int lane,
+                                         AMap amap = AMap()) {
   gemm32_nb<MISH, KSTEPS, NU, true, MS>(acc, a_lane, w, a_off,
-                                        [](int s) { return s * 16 * MS; }, lane);
+                                        [](int s) { return s * 16 * MS; }, lane, amap);
 }
 
 // gemm32_n over two m16 tiles where `two` (warp-uniform), else one
-template <bool MISH, int KSTEPS, typename AOff>
+template <bool MISH, int KSTEPS, typename AOff, typename AMap = Act2>
 __device__ __forceinline__ void gemm32(float (&acc)[2][4][4], const bf16* const (&a_lane)[2],
-                                       bool two, const bf16* w, AOff a_off, int lane) {
+                                       bool two, const bf16* w, AOff a_off, int lane,
+                                       AMap amap = AMap()) {
   if (two)
-    gemm32_n<MISH, KSTEPS, 2>(acc, a_lane, w, a_off, lane);
+    gemm32_n<MISH, KSTEPS, 2>(acc, a_lane, w, a_off, lane, amap);
   else
-    gemm32_n<MISH, KSTEPS, 1>(acc, a_lane, w, a_off, lane);
+    gemm32_n<MISH, KSTEPS, 1>(acc, a_lane, w, a_off, lane, amap);
 }
 
 }  // namespace

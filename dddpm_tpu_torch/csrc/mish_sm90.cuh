@@ -1,6 +1,7 @@
 // mish and its derivative on the SFU (sm_90a): one ex2 and one rcp, no
-// branch.  Included by conv3x3.cu (K5), convres_fwd.cu (K2) and
-// convres_bwd.cu (K3), so that they use one copy.
+// branch.  Included by conv3x3.cu (K5), convres_fwd.cu (K2),
+// convres_bwd.cu (K3) and probe_convres.cu (P3), so that they use one
+// copy.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -3,8 +3,8 @@
 // operands and f32 sums.  Included by winograd.cu (K6), conv3x3.cu (K5),
 // convres_fwd.cu (K2), convres_bwd.cu (K3, through convres_sm90.cuh),
 // attention_block.cu (K1a, K1b), probe_cmajor_conv.cu (P4),
-// int8_conv.cu (Q1) and probe_attention.cu (P1), so that they use one
-// copy of each.
+// int8_conv.cu (Q1), probe_attention.cu (P1) and probe_convres.cu (P3),
+// so that they use one copy of each.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,33 +1,38 @@
 """P3: where the fused ConvResBlock forward spends its time on the card
 (counterpart of scripts/probe_convres_variants.py): the forward with
-one cost removed or changed at a time, through csrc/probe_convres.cu,
-residual on, no scaling, cio 64, cm 32.
+one cost removed or changed at a time, through csrc/probe_convres.cu
+(K2's bf16 tensor-core design, csrc/convres_fwd.cu), residual on, no
+scaling, cio 64, cm 32.
 
   base      masks per element, im2col, mish in f32, TH = 8 rows a tile
             (the TPU probe's base, whose tile was 16 rows)
-  rowmask   one mask predicate a row: out-of-image rows not computed
+  rowmask   one mask predicate a pixel, K2's: zero selected at
+            out-of-image rows
   nomask    no mask (WRONG at the top and bottom borders, as the
             probe's: halo rows keep mish(b1 ...), halo columns stay zero)
-  ninedot   rowmask, with nine accumulated taps in place of im2col
-  bf16mish  rowmask, with mish on bf16 data (other numerics, as the
+  ninedot   rowmask, with nine accumulated taps in place of im2col:
+            K2's own route at this shape
+  bf16mish  rowmask, with mish on bf16 pairs (other numerics, as the
             probe's)
   tile2x    rowmask, with 2 * TH = 16 rows a tile (the probe's th32)
   kitchen   nomask + ninedot + bf16mish + tile2x
-What each removes in the kernel's terms is in the source's note.
+What each removes in the kernel's terms, and the second changes that
+shared memory forces (the im2col stage carved from the x band; one
+group of warps a block at 16 rows), are in the source's note.
 
     python -m dddpm_tpu_torch.probes.convres_variants [--bs 32] [--res 256]
 
 It needs a card.  It prints the shipped K2 (ops/convres.py:
 fused_convres_block, residual, no scaling) at the same shape, then
-every variant, each held before it is timed against the plain version
-of the same (wrong or bf16) function on the full input: within TOL of
-the larger of 1 and the output's largest magnitude (intermediates
-rounded to bf16 in other places, sums in other orders), TOL_BF16_MISH
-for the bf16-mish variants (their approximate transcendentals put about
-one rounding in eight an ulp away).  The residual x dominates that
-magnitude, so b1 and b2 are shifted by +1: unmasked halo rows then hold
-mish(~1), and main() shows on its own inputs, before the variants, that
-the masked variants' check fails the unmasked output.
+every variant with its ratio to that K2, each held before it is timed
+against the plain version of the same (wrong or bf16) function on the
+full input: within TOL of the larger of 1 and the output's largest
+magnitude (intermediates rounded to bf16 in other places, sums in other
+orders), TOL_BF16_MISH for the bf16-mish variants (their approximate
+transcendentals move some of the roundings an ulp).  The residual x
+dominates that magnitude, so b1 and b2 are shifted by +1: unmasked halo
+rows then hold mish(~1), and main() shows on its own inputs, before the
+variants, that the masked variants' check fails the unmasked output.
 """
 from __future__ import annotations
 
@@ -176,7 +181,8 @@ def cost(bsz: int, h: int, w: int, itemsize: int = 2) -> dict:
 def main(argv=None) -> dict:
     """Checks, then times, the shipped K2 and every variant; returns the
     base variant's numbers (ms, plain_ms, library_ms, max_abs_err over
-    every variant, cost) under the kernel's name."""
+    every variant, cost) and the shipped K2's time alone (shipped_ms)
+    under the kernel's name."""
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--bs", type=int, default=32)
     p.add_argument("--res", type=int, default=256)
@@ -196,8 +202,8 @@ def main(argv=None) -> dict:
         want = cr.reference_impl(x, *ws, residual=True, scale=None)
         _util.check("shipped K2", k2(), want, _util.scaled_tol(want, TOL))
         del want
-        ms = time(k2)
-        print(_util.row("shipped K2 (ops/convres.py)", ms, cst))
+        shipped_ms = time(k2)
+        print(_util.row("shipped K2 (ops/convres.py)", shipped_ms, cst))
         check_sees_faults(x, ws)
         head, err_max = None, 0.0
         for name, (_, _, mish_dt, _) in VARIANTS.items():
@@ -208,10 +214,12 @@ def main(argv=None) -> dict:
             del want
             err_max = max(err_max, err)
             ms = time(lambda: kernel(x, *ws, variant=name))
-            print(_util.row(name, ms, cst, f"err {err:.2e}"))
+            print(_util.row(name, ms, cst, f"err {err:.2e}, "
+                            f"{ms / shipped_ms:.2f}x the shipped K2"))
             if head is None:
                 plain_ms = time(lambda: plain(x, *ws, variant=name))
-                head = dict(ms=ms, plain_ms=plain_ms, library_ms=None, cost=cst)
+                head = dict(ms=ms, plain_ms=plain_ms, library_ms=None, cost=cst,
+                            shipped_ms=shipped_ms)
                 print(f"  plain version of {name}: {plain_ms:.3f} ms")
     head["max_abs_err"] = err_max
     return {"probe_convres": head}

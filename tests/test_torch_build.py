@@ -107,10 +107,10 @@ def test_a_header_edit_names_another_library(build_dir, tmp_path, monkeypatch):
 @pytest.mark.parametrize("name", ["conv3x3", "winograd", "probe_cmajor_conv",
                                   "convres_fwd", "convres_bwd", "attention_block",
                                   "int8_conv", "convres_general", "linear_attention",
-                                  "probe_attention"])
+                                  "probe_attention", "probe_convres"])
 def test_tensor_core_kernels_share_one_copy_of_the_fragment_helpers(name):
     """K5, K6, P4, K2, K3, K1a/K1b/K1c, Q1, K2/K3's width-general route,
-    K4 and P1a/P1b include csrc/mma_sm90.cuh and define none of its
+    K4, P1a/P1b and P3 include csrc/mma_sm90.cuh and define none of its
     helpers themselves, so they cannot drift apart."""
     source = (_build.CSRC / f"{name}.cu").read_text()
     assert '#include "mma_sm90.cuh"' in source
@@ -161,9 +161,10 @@ def test_wgmma_kernels_share_one_copy_of_the_hopper_helpers(name):
     assert "asm" not in source
 
 
-@pytest.mark.parametrize("name", ["conv3x3", "convres_fwd", "convres_general"])
+@pytest.mark.parametrize("name", ["conv3x3", "convres_fwd", "convres_general",
+                                  "probe_convres"])
 def test_mish_kernels_share_one_copy_of_the_fast_mish(name):
-    """K5, K2 and K2/K3's width-general route include csrc/mish_sm90.cuh
+    """K5, K2, K2/K3's width-general route and P3 include csrc/mish_sm90.cuh
     (mish by one ex2 and one rcp) and define neither it nor its two
     instructions' helpers themselves."""
     source = (_build.CSRC / f"{name}.cu").read_text()
@@ -316,10 +317,39 @@ def test_attention_probe_runs_on_the_tensor_cores():
     assert "slot = (size_t)bi * nt + j" in reduce
 
 
-@pytest.mark.parametrize("name", ["convres_fwd", "convres_bwd"])
+def test_convres_probe_runs_on_the_tensor_cores():
+    """csrc/probe_convres.cu (P3): every variant's products go through
+    convres_sm90.cuh's gemm32 passes and its mma (mma.sync), with no
+    fmaf( and no __shfl_sync product loop anywhere; the im2col stage is
+    copied and read only inside `if constexpr (IM2COL)` (G2's and G3's),
+    and only the IM2COL instantiations (base, rowmask, nomask, bf16mish,
+    tile2x: variants 0-2, 4, 5) reach it."""
+    source = (_build.CSRC / "probe_convres.cu").read_text()
+    assert "fmaf(" not in source and "__shfl_sync" not in source
+    kernel = _body(source, "probe_convres_kernel(const bf16* __restrict__ x")
+    for op in ("gemm32<true, CIO / 16>(", "gemm32<false, 18>(",
+               "gemm32_n<false, 18, 1>(acc, a_lane, w3s", "mma(o[0], a3[kc]"):
+        assert op in kernel, op
+    for src, w in (("m1s", "w2s"), ("m2s", "w3s")):
+        at = kernel.index(f"im2col({src}, ")
+        assert kernel.count(f"im2col({src}, ") == 1, src
+        branch = kernel.rindex("if constexpr (", 0, at)
+        assert kernel.startswith("if constexpr (IM2COL) {", branch), src
+        other = kernel.index("} else {", at)
+        assert "} else {" not in kernel[branch:at], src
+        assert f"gemm32_n<false, 18, 1>(acc, stage_lane, {w}" in kernel[at:other], src
+    assert kernel.count("stage_lane, w") == 2
+    entry = source[source.index('extern "C" {'):]
+    cases = [line.split("(")[1].split(",") for line in entry.splitlines()
+             if "return DDDPM_PROBE_CONVRES(" in line]
+    assert [c[1].strip() for c in cases] == ["true", "true", "true", "false", "true",
+                                             "true", "false"]
+
+
+@pytest.mark.parametrize("name", ["convres_fwd", "convres_bwd", "probe_convres"])
 def test_convres_kernels_share_one_copy_of_the_gemm_helpers(name):
-    """K2 and K3 include csrc/convres_sm90.cuh (the implicit-GEMM pass and
-    the bf16-pair helpers) and define none of them themselves."""
+    """K2, K3 and P3 include csrc/convres_sm90.cuh (the implicit-GEMM pass
+    and the bf16-pair helpers) and define none of them themselves."""
     source = (_build.CSRC / f"{name}.cu").read_text()
     assert '#include "convres_sm90.cuh"' in source
     for helper in ("unsigned pack2(", "unsigned act2(", "void gemm32_nb(",

@@ -797,8 +797,10 @@ def _p3_inputs(card, bsz, h, w, seed):
             r(1, 1, cm, 64) / cm ** 0.5, 0.1 * r(64))
 
 
+# (1, 5, 9): H under one 16-row tile and W under 16, the partial tiles of
+# both tile heights
 @pytest.mark.parametrize("variant", list(p3.VARIANTS))
-@pytest.mark.parametrize("bsz,h,w", [(2, 40, 36), (1, 64, 64)])
+@pytest.mark.parametrize("bsz,h,w", [(2, 40, 36), (1, 64, 64), (1, 5, 9)])
 def test_probe_convres_matches_plain(card, variant, bsz, h, w):
     args = _p3_inputs(card, bsz, h, w, h * w + 60)
     got = p3.convres(*args, variant=variant)
