@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ptxas line first, no spill allowed) and forward at the x3 training
    shapes; K2's and K3's bf16 times logged per shape, eager (the kernels
    line's `ms`) and replayed from a CUDA graph (`graph_ms`: its kernels
-   without the host's gaps between launches);
+   without the host's gaps between launches); K3 beside cuDNN doing the
+   block's eleven convs at the same shapes (`library_ms`, a yardstick
+   the port never calls);
 4. drives the x2 dDDPM sampling path through the port's entry points
    (build_model -> init_fn -> generate_samples, a chain cut to
    CHAIN_STEPS steps, then p_sample_chain over ts = [2, 1, 0]) with the
@@ -575,14 +577,16 @@ def phase_convres_bwd(results):
             bnd, by = bound_ms(cost, dtype)
             if dtype == torch.bfloat16:
                 gms = graph_ms(run, 3)
+                lib = cudnn_block_ms(B_REC, h, 64, cr.MID_CHANNELS, True)
                 log(f"    convres_bwd {h}x{w} ({scale}) {dtype}: kernel "
                     f"{ms * 1e3:.1f} us ({gms * 1e3:.1f} from a CUDA graph), "
                     f"plain {plain_ms * 1e3:.1f} us, bound {bnd * 1e3:.1f} us "
-                    f"({by}); 9 gradients ok, max abs err {err:.3e}, at most "
-                    f"{share:.1%} of its tolerance")
+                    f"({by}), cuDNN's 11 convs {lib * 1e3:.1f} us; 9 gradients "
+                    f"ok, max abs err {err:.3e}, at most {share:.1%} of its "
+                    f"tolerance")
                 # per train step: 2 micro-batches, n launches of this shape
                 accumulate(results, "convres_bwd", "x3_train", 2 * n, ms,
-                           plain_ms, bnd, cost, err, graph_ms=gms)
+                           plain_ms, bnd, cost, err, library_ms=lib, graph_ms=gms)
             else:
                 log(f"    convres_bwd {h}x{w} ({scale}) {dtype}: kernel "
                     f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
@@ -592,7 +596,8 @@ def phase_convres_bwd(results):
     log(f"  K3 at the training shapes, per train step ({2 * BWD_PER_MB} "
         f"launches, bf16): kernel {k3['ms']:.2f} ms ({k3['graph_ms']:.2f} from "
         f"CUDA graphs), plain {k3['plain_ms']:.2f} ms, bound "
-        f"{k3['bound_ms']:.3f} ms; the largest share of its tolerance "
+        f"{k3['bound_ms']:.3f} ms, cuDNN's convs {k3['library_ms']:.2f} ms; "
+        f"the largest share of its tolerance "
         f"{shares[torch.bfloat16]:.1%} (bf16), {shares[torch.float32]:.1%} "
         f"(f32)")
     with torch.no_grad():

@@ -27,10 +27,10 @@
 // and writes dx (25 MB in bf16) and does ~8.8 GFLOP (the first three
 // convs recomputed, then the data and weight gradients of all four),
 // ~350 FLOP/B, above the card's ~295 FLOP/B ridge: at the bf16
-// tensor-core rate the bound is operations.  This design runs the seven
-// products of the recompute and the data-gradient chain on mma.sync and
-// the four weight-gradient sums (a third of the FLOP) as FMA loops on
-// the CUDA cores, which then bound it.
+// tensor-core rate the bound is operations.  This design runs all of
+// them on mma.sync: the seven products of the recompute and the
+// data-gradient chain (stage A), then the four weight-gradient sums (a
+// third of the FLOP) and the four bias sums (stage B).
 //
 // What this design does about it (bf16): one block an SM walks over
 // output tiles of TH x 16 pixels of one sample (8 x 16 at CIO 32 and 64,
@@ -52,14 +52,21 @@
 // ldmatrix, at the mirrored tap 8 - k for the 3x3s, so w1..w4 serve both
 // directions.  The x band's room is taken over, once G1 has read it, by
 // the dy band, g2 and m3; mish'(p1)'s and mish'(p2)'s, once T1 has read
-// them, by m0 and g1.  Every warp runs every stage, with a barrier
-// between stages.  The weight gradients: warp w sums tap w of dw3 and
-// dw2 (a lane 4 ci x 8 co) in registers over all of the block's tiles;
-// dw1, dw4 and the biases' sums go into the block's partial tile by
-// tile.  Each block writes one float32 partial of all eight gradients
-// (every element owned by one thread, no atomics), summed over the tile's
-// pixels in the image only, and convres_bwd_reduce sums the blocks'
-// partials in block order: deterministic.
+// them, by m0 and g1 (m0 in dense rows of CIO, its 16-byte chunks
+// XOR-swizzled by pixel).  Every warp runs every stage, with a barrier
+// between stages.  Stage B's sums are implicit GEMMs too, M x N = 32 x
+// 32 a warp's piece, depth the tile's pixels, one k-step of 16 a tile
+// row: A^T (m) and B (g, dy) both [pixel][channel] rows read by
+// ldmatrix.trans, a 3x3 tap again a constant offset into m's window.
+// Warp w sums tap w of dw3 and dw2 in registers over all of the block's
+// tiles; warps 0 .. 2 CIO / 32 - 1 each a 32-channel piece of dw4 or dw1,
+// and the last warp db3 and db2, into the block's partial tile by tile;
+// the biases are column sums, products of a ones fragment with the B
+// fragments (db4's and db1's with their weight's).  Each block writes one
+// float32 partial of all eight gradients (every element owned by one
+// thread, no atomics), summed over the tile's pixels in the image only
+// (every operand is 0 outside it), and convres_bwd_reduce sums the
+// blocks' partials in block order: deterministic.
 //
 // float32 is on no default path and keeps the kernel's first design
 // (namespace f32), selected by the dtype argument (not a fallback): 8 x 8
@@ -67,9 +74,10 @@
 // and intermediates in shared memory.
 //
 // CONVRES_SKIP (a -D define, 0 by default; csrc/convres_sm90.cuh) compiles
-// parts of the bf16 kernel out, by bit: 1 the products (mma), 2 mish and
-// mish', 4 the global traffic (the x and dy bands, x at the tile, dx), 8
-// the weight-gradient sums.  Only the ablation probe
+// parts of the bf16 kernel out, by bit: 1 stage A's products (mma), 2
+// mish and mish', 4 the global traffic (the x and dy bands, x at the
+// tile, dx), 8 the whole of stage B (its mma weight and bias sums and
+// their partial's updates).  Only the ablation probe
 // (probes/convres_bwd_ablation.py) sets it; its kernels compute garbage.
 //
 // C interface: plain C entry, loaded with ctypes.  It launches on the
@@ -80,7 +88,8 @@
 #include <stdint.h>
 
 #include "convres_sm90.cuh"  // bf16, CM, MS, SKIP, pack2, act_dact, gemm32(_nb)
-#include "mma_sm90.cuh"      // cp_async16
+#include "mma_sm90.cuh"      // cp_async16, ldmatrix_x4_trans, mma_bf16
+
 
 namespace {
 
@@ -462,7 +471,8 @@ constexpr int THREADS = 32 * NWARPS;
 // biases (f32), then X (the x band on R4 for G1; afterwards the dy band
 // on R2, g2 on R1 and m3 on T), m1 (R4), m2 (R3), g3 (R2), and F
 // (f32 mish'(p1) on T, then mish'(p2) on R1; after T1, m0 on T in dense
-// rows of CIO at its start and g1 on T at its end).
+// rows of CIO at its start, chunks swizzled by m0_chunk, and g1 on T at
+// its end).
 template <int CIO, int TH_>
 struct Tile {
   static constexpr int TH = TH_;
@@ -504,40 +514,97 @@ struct Tile {
 // twice in a half-warp
 __device__ __forceinline__ int dmi(int px, int ch) { return px * CM + (ch ^ ((px & 3) << 3)); }
 
-// N bf16 at p as floats: N = 4 from an 8-byte aligned p, else N a
-// multiple of 8 from a 16-byte aligned p
-template <int N>
-__device__ __forceinline__ void load_f(const bf16* p, float (&f)[N]) {
-  static_assert(N == 4 || N % 8 == 0, "whole 8- or 16-byte pieces");
-  if constexpr (N == 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    f[0] = lo_f(v.x);
-    f[1] = hi_f(v.x);
-    f[2] = lo_f(v.y);
-    f[3] = hi_f(v.y);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N / 8; ++i) {
-      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
-      const unsigned u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        f[8 * i + 2 * e] = lo_f(u[e]);
-        f[8 * i + 2 * e + 1] = hi_f(u[e]);
-      }
-    }
-  }
+// The 16-byte chunk of m0's dense rows (CH chunks a pixel) that holds
+// chunk ch of pixel pt: XOR-swizzled by pixel, so that the 8 pixel rows
+// an ldmatrix reads (8 pixels from a multiple of 8) fall in 8 bank groups
+template <int CH>
+__device__ __forceinline__ int m0_chunk(int pt, int ch) {
+  static_assert(CH == 4 || CH % 8 == 0, "64-byte rows or whole 128-byte lines");
+  return ch ^ (CH == 4 ? (pt >> 1) & 3 : pt & 7);
 }
 
-// acc[i][j] += m[i] g[j]: 4 ci of m's pixel row at m, 8 co of g's at g
-__device__ __forceinline__ void outer48(float (&acc)[4][8], const bf16* m, const bf16* g) {
-  float mf[4], gf[8];
-  load_f(m, mf);
-  load_f(g, gf);
+// Stage B's products: the weight sums are implicit GEMMs whose depth is
+// pixels, one k-step of 16 a tile row, both operands [pixel][channel]
+// rows read by ldmatrix.trans (the kernel gives each lane its rows).
+//
+// B's fragments of one k-step, 16 pixels x 32 channels from b (this
+// lane's row address): n8 tiles 0, 1 in bf[0], 2, 3 (16 channels on) in bf[1]
+__device__ __forceinline__ void wload_b(unsigned (&bf)[2][4], const bf16* b) {
+  ldmatrix_x4_trans(bf[0], b);
+  ldmatrix_x4_trans(bf[1], b + 16);
+}
+
+// acc[mt][nt] += A B over one k-step, M = N = 32: A^T's 16 pixels x 32
+// channels at a0 (channels 0-15, this lane's row address) and a1
+// (16-31), B's fragments bf
+__device__ __forceinline__ void wsum(float (&acc)[2][4][4], const bf16* a0, const bf16* a1,
+                                     const unsigned (&bf)[2][4]) {
+  unsigned af[2][4];
+  ldmatrix_x4_trans(af[0], a0);
+  ldmatrix_x4_trans(af[1], a1);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(mf[i], gf[j], acc[i][j]);
+    for (int nt = 0; nt < 4; ++nt)
+      mma_bf16(acc[mt][nt], af[mt], bf[nt >> 1][2 * (nt & 1)], bf[nt >> 1][2 * (nt & 1) + 1]);
+}
+
+// s[nt] += the column sums of B (a ones fragment times B): every row of
+// s the same, channel 8 nt + 2 (lane & 3) (+ 1) in s[nt][0] (s[nt][1])
+__device__ __forceinline__ void wcolsum(float (&s)[4][4], const unsigned (&bf)[2][4]) {
+  constexpr unsigned ONE2 = 0x3f803f80u;   // a bf16 pair of ones
+  const unsigned ones[4] = {ONE2, ONE2, ONE2, ONE2};
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+    mma_bf16(s[nt], ones, bf[nt >> 1][2 * (nt & 1)], bf[nt >> 1][2 * (nt & 1) + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
+}
+template <int M, int N>
+__device__ __forceinline__ void zero(float (&a)[M][N][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) zero(a[i]);
+}
+
+// p[r * ld + c] (+)= acc's element (r, c), r = 16 mt + row, c = 8 nt +
+// col: the m16n8 layout, two floats (c, c + 1) a store
+template <bool ADD>
+__device__ __forceinline__ void wstore(float* p, int ld, const float (&acc)[2][4][4],
+                                       int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2* const q =
+            reinterpret_cast<float2*>(p + (16 * mt + g + 8 * h) * ld + 8 * nt + 2 * tq);
+        float2 v = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        if (ADD) {
+          const float2 o = *q;
+          v.x += o.x;
+          v.y += o.y;
+        }
+        *q = v;
+      }
+}
+
+// p[c] += column sums s (wcolsum's), 32 channels, from lanes 0-3
+__device__ __forceinline__ void wstore_sum(float* p, const float (&s)[4][4], int lane) {
+  if (lane >= 4) return;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    float2* const q = reinterpret_cast<float2*>(p + 8 * nt + 2 * lane);
+    const float2 o = *q;
+    *q = make_float2(o.x + s[nt][0], o.y + s[nt][1]);
+  }
 }
 
 // gemm32_nb over the weights seen transposed (B as [n][k] rows of MS):
@@ -604,13 +671,10 @@ convres_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   }
   __syncthreads();
 
-  // dw3 and dw2 of tap `warp`, ci 4 cb + i, co 8 ob + j, over every tile
-  const int cb = lane >> 2, ob = lane & 3;
-  float a3[4][8], a2[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) a3[i][j] = a2[i][j] = 0.f;
+  // dw3 and dw2 of tap `warp` (ci x co, m16n8 fragments), over every tile
+  float a3[2][4][4], a2[2][4][4];
+  zero(a3);
+  zero(a2);
 
   const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
   const int ntiles = B * tiles_h * tiles_w;
@@ -828,7 +892,7 @@ convres_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
         v = *reinterpret_cast<const uint4*>(xb + ((size_t)gr * W + gc) * CIO + ch * 8);
         v = make_uint4(act2(v.x), act2(v.y), act2(v.z), act2(v.w));
       }
-      *reinterpret_cast<uint4*>(m0s + pt * CIO + ch * 8) = v;
+      *reinterpret_cast<uint4*>(m0s + pt * CIO + m0_chunk<CH>(pt, ch) * 8) = v;
     }
     // D on the tile, 32 output channels j at a time: dx = (g1 . w1^T)
     // mish'(x) (+ dy)
@@ -863,85 +927,86 @@ convres_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     }
     __syncthreads();
 
-    // the weight and bias gradients over the tile's pixels in the image
+    // stage B, the weight and bias gradients over the tile's rows in the
+    // image (every operand is 0 at a pixel outside it: m0, g1 and g2
+    // masked, g3 and dy on dy's zero band), each a k-step of 16 pixels on
+    // the tensor cores: every warp tap `warp` of dw3 and dw2; warp u < 2 NJ
+    // 32 columns of dw4 (u < NJ, with db4's) or 32 rows of dw1 (with db1
+    // at the first); the last warp db3 and db2
     if (!(SKIP & 8)) {
-      const int nr = min(TH, H - r0), nc = min(TW, W - c0);
-      {   // dw3, dw2 of tap `warp`: m(P + off) window at P + (ky, kx)
+      const int nr = min(TH, H - r0);
+      // this lane's ldmatrix.trans row: of A^T (M = its channels) pixel ap,
+      // channel ac; of B (N = its channels) pixel bp, channel bc
+      // (gemm32_nb's BT rows)
+      const int ap = (lane & 7) + ((lane >> 4) << 3), ac = ((lane >> 3) & 1) << 3;
+      const int bp = lane & 15, bc = (lane >> 4) << 3;
+      {   // dw3, dw2 of tap (ky, kx): m(P + off) at P + (ky, kx) in m's window
         const int ky = warp / 3, kx = warp % 3;
-        const bf16* const m2p = m2s + ((2 + ky) * W3 + 2 + kx) * MS + 4 * cb;
-        const bf16* const g3p = g3s + (2 * W2 + 2) * MS + 8 * ob;
-        const bf16* const m1p = m1s + ((3 + ky) * W4 + 3 + kx) * MS + 4 * cb;
-        const bf16* const g2p = g2s + (W1 + 1) * MS + 8 * ob;
-        for (int pr = 0; pr < nr; ++pr)
-#pragma unroll 4
-          for (int pc = 0; pc < nc; ++pc) {
-            outer48(a3, m2p + (pr * W3 + pc) * MS, g3p + (pr * W2 + pc) * MS);
-            outer48(a2, m1p + (pr * W4 + pc) * MS, g2p + (pr * W1 + pc) * MS);
-          }
-      }
-      if (warp < 8) {
-        // dw4 (CM, CIO) row k and dw1 (CIO, CM) column k = tid / 8, at
-        // CIO / 8 channels from (tid % 8) CIO / 8
-        constexpr int NJ = CIO / 8;
-        const int k = tid >> 3, c8 = (tid & 7) * NJ;
-        float d4[NJ], d1[NJ];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) d4[j] = d1[j] = 0.f;
-        for (int pr = 0; pr < nr; ++pr)
-          for (int pc = 0; pc < nc; ++pc) {
-            const int pt = pr * TW + pc;
-            const float m3v = __bfloat162float(m3s[pt * MS + k]);
-            const float g1v = __bfloat162float(g1s[pt * MS + k]);
-            float dyf[NJ], m0f[NJ];
-            load_f(dys + ((pr + 2) * W2 + pc + 2) * XS + c8, dyf);
-            load_f(m0s + pt * CIO + c8, m0f);
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-              d4[j] = fmaf(m3v, dyf[j], d4[j]);
-              d1[j] = fmaf(m0f[j], g1v, d1[j]);
-            }
-          }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          pb[L::DW4 + k * CIO + c8 + j] += d4[j];
-          pb[L::DW1 + (c8 + j) * CM + k] += d1[j];
+        const bf16* const m2a = m2s + ((2 + ky) * W3 + 2 + kx + ap) * MS + ac;
+        const bf16* const g3b = g3s + (2 * W2 + 2 + bp) * MS + bc;
+        const bf16* const m1a = m1s + ((3 + ky) * W4 + 3 + kx + ap) * MS + ac;
+        const bf16* const g2b = g2s + (W1 + 1 + bp) * MS + bc;
+        for (int pr = 0; pr < nr; ++pr) {
+          unsigned b3[2][4], b2[2][4];
+          wload_b(b3, g3b + pr * W2 * MS);
+          wload_b(b2, g2b + pr * W1 * MS);
+          wsum(a3, m2a + pr * W3 * MS, m2a + pr * W3 * MS + 16, b3);
+          wsum(a2, m1a + pr * W4 * MS, m1a + pr * W4 * MS + 16, b2);
         }
-      } else {
-        // the biases: lane owns channel `lane` of db1, db2, db3 and
-        // channels lane + 32 i of db4
-        float s1 = 0.f, s2 = 0.f, s3 = 0.f, s4[CIO / 32];
-#pragma unroll
-        for (int i = 0; i < CIO / 32; ++i) s4[i] = 0.f;
-        for (int pr = 0; pr < nr; ++pr)
-          for (int pc = 0; pc < nc; ++pc) {
-            s1 += __bfloat162float(g1s[(pr * TW + pc) * MS + lane]);
-            s2 += __bfloat162float(g2s[((pr + 1) * W1 + pc + 1) * MS + lane]);
-            s3 += __bfloat162float(g3s[((pr + 2) * W2 + pc + 2) * MS + lane]);
-#pragma unroll
-            for (int i = 0; i < CIO / 32; ++i)
-              s4[i] += __bfloat162float(dys[((pr + 2) * W2 + pc + 2) * XS + lane + 32 * i]);
+      }
+      constexpr int NJ = CIO / 32;
+      static_assert(2 * NJ < NWARPS, "a warp for each dw4 and dw1 piece, one for db3, db2");
+      if (warp < 2 * NJ) {
+        // dw4 (CM, CIO) columns 32 j.. = sum m3^T dy, or dw1 (CIO, CM)
+        // rows 32 j.. = sum m0^T g1
+        const bool d4 = warp < NJ;
+        const int j = d4 ? warp : warp - NJ;
+        const bool sums = d4 || j == 0;   // db4's columns 32 j.., or db1
+        float acc[2][4][4], s[4][4];
+        zero(acc);
+        zero(s);
+        for (int pr = 0; pr < nr; ++pr) {
+          unsigned bf[2][4];
+          if (d4) {
+            const bf16* const a = m3s + (pr * TW + ap) * MS + ac;
+            wload_b(bf, dys + ((pr + 2) * W2 + 2 + bp) * XS + 32 * j + bc);
+            wsum(acc, a, a + 16, bf);
+          } else {
+            const int pt = pr * TW + ap, c8 = 4 * j + (ac >> 3);
+            wload_b(bf, g1s + (pr * TW + bp) * MS + bc);
+            wsum(acc, m0s + pt * CIO + m0_chunk<CH>(pt, c8) * 8,
+                 m0s + pt * CIO + m0_chunk<CH>(pt, c8 + 2) * 8, bf);
           }
-        pb[L::DB1 + lane] += s1;
-        pb[L::DB2 + lane] += s2;
-        pb[L::DB3 + lane] += s3;
-#pragma unroll
-        for (int i = 0; i < CIO / 32; ++i) pb[L::DB4 + lane + 32 * i] += s4[i];
+          if (sums) wcolsum(s, bf);
+        }
+        if (d4) {
+          wstore<true>(pb + L::DW4 + 32 * j, CIO, acc, lane);
+          wstore_sum(pb + L::DB4 + 32 * j, s, lane);
+        } else {
+          wstore<true>(pb + L::DW1 + 32 * j * CM, CM, acc, lane);
+          if (sums) wstore_sum(pb + L::DB1, s, lane);
+        }
+      } else if (warp == NWARPS - 1) {
+        float s3[4][4], s2[4][4];
+        zero(s3);
+        zero(s2);
+        for (int pr = 0; pr < nr; ++pr) {
+          unsigned bf[2][4];
+          wload_b(bf, g3s + ((pr + 2) * W2 + 2 + bp) * MS + bc);
+          wcolsum(s3, bf);
+          wload_b(bf, g2s + ((pr + 1) * W1 + 1 + bp) * MS + bc);
+          wcolsum(s2, bf);
+        }
+        wstore_sum(pb + L::DB3, s3, lane);
+        wstore_sum(pb + L::DB2, s2, lane);
       }
     }
     __syncthreads();   // the next tile's band overwrites X
   }
 
-  // dw3, dw2: this thread's sums over the block's tiles
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = warp * CM + 4 * cb + i;   // tap * 32 + ci
-    float4* const p3 = reinterpret_cast<float4*>(pb + L::DW3 + row * CM + 8 * ob);
-    float4* const p2 = reinterpret_cast<float4*>(pb + L::DW2 + row * CM + 8 * ob);
-    p3[0] = make_float4(a3[i][0], a3[i][1], a3[i][2], a3[i][3]);
-    p3[1] = make_float4(a3[i][4], a3[i][5], a3[i][6], a3[i][7]);
-    p2[0] = make_float4(a2[i][0], a2[i][1], a2[i][2], a2[i][3]);
-    p2[1] = make_float4(a2[i][4], a2[i][5], a2[i][6], a2[i][7]);
-  }
+  // dw3, dw2 of tap `warp`: this warp's sums over the block's tiles
+  wstore<false>(pb + L::DW3 + warp * CM * CM, CM, a3, lane);
+  wstore<false>(pb + L::DW2 + warp * CM * CM, CM, a2, lane);
 }
 
 template <int CIO, int TH>

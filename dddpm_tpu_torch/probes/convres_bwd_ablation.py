@@ -4,13 +4,15 @@ parts taken out, timed at the x3 training shapes on the card.
     python -m dddpm_tpu_torch.probes.convres_bwd_ablation
 
 Each variant is csrc/convres_bwd.cu compiled with CONVRES_SKIP, which
-takes parts of the kernel out: the seven products (mma), mish and
-mish' (the identity and 1), the global traffic (the x and dy bands, x
-at the tile, the stores of dx) and the weight-gradient sums (the FMA
-loops of dw1..dw4 and the biases' sums).  The ldmatrix loads, the
-epilogues' other work, the shared-memory writes, the barriers and the
-in-order reduce of the blocks' partials stay in every variant, so
-"none" is the kernel's fixed cost.  A variant without a part computes
+takes parts of the kernel out: stage A's seven products (mma), mish
+and mish' (the identity and 1), the global traffic (the x and dy bands,
+x at the tile, the stores of dx) and the whole of stage B (the weight
+and bias sums: their ldmatrix loads and mma.sync products, dw1..dw4
+and the column sums of db1..db4, and their updates of the block's
+partial).  So "full" less "no weight sums" is stage B's time.  Stage
+A's ldmatrix loads, the epilogues' other work, the shared-memory
+writes, the barriers and the in-order reduce of the blocks' partials
+stay in every variant, so "none" is the kernel's fixed cost.  A variant without a part computes
 garbage: nothing here is checked, only timed (the shipped kernel's
 checks are the card tests and chip_smoke.py's K3 phase).  Each launch
 goes through the C entry with weights already in bf16, so the times are
@@ -27,8 +29,8 @@ from dddpm_tpu_torch.ops import _build
 from dddpm_tpu_torch.ops import convres as cr
 from dddpm_tpu_torch.probes import _util
 
-# CONVRES_SKIP's bits in K3: 1 products, 2 mish and mish', 4 global
-# traffic, 8 weight sums
+# CONVRES_SKIP's bits in K3: 1 stage A's products, 2 mish and mish', 4
+# global traffic, 8 stage B (the weight and bias sums)
 VARIANTS = {"full": 0, "no products": 1, "no mish": 2, "no global traffic": 4,
             "no weight sums": 8, "products only": 14, "mish only": 13,
             "traffic only": 11, "weight sums only": 7, "none (fixed cost)": 15}
@@ -80,6 +82,11 @@ def main(argv=None) -> dict:
         print(f"  {name:18s}" + "".join(
             f"  B={b} {h}^2: {table[(name, (b, h, w))]:8.1f}"
             for b, h, w in SHAPES), flush=True)
+    for shape in SHAPES:
+        full = table[("full", shape)]
+        stage_b = full - table[("no weight sums", shape)]
+        print(f"  stage B (full less no weight sums) B={shape[0]} {shape[1]}^2: "
+              f"{stage_b:.1f} us, {stage_b / full:.1%} of a launch", flush=True)
     return table
 
 

@@ -346,6 +346,50 @@ def test_convres_probe_runs_on_the_tensor_cores():
                                              "true", "false"]
 
 
+def _block(source: str, head: str) -> str:
+    """The braced block that opens at `head` (its last character a
+    brace), found by counting braces."""
+    start = source.index(head) + len(head)
+    depth = 1
+    for i in range(start, len(source)):
+        depth += {"{": 1, "}": -1}.get(source[i], 0)
+        if depth == 0:
+            return source[start:i]
+    raise ValueError(head)
+
+
+def test_convres_backward_sums_weights_on_the_tensor_cores():
+    """csrc/convres_bwd.cu's bf16 K3 (namespace tc) forms all four weight
+    gradients and the four bias sums on the tensor cores: no fmaf( and no
+    scalar outer-product helper (outer48) in the namespace; stage B's
+    sums go through wsum / wcolsum, which read both operands by
+    ldmatrix.trans and multiply with the shared mma_bf16 (dw3, dw2 in
+    the tap loop; dw4 and dw1 a 32-channel piece a warp), and the whole
+    of stage B sits under CONVRES_SKIP's bit 8, which the ablation probe
+    relies on; the f32 kernel keeps its FMA loops."""
+    source = (_build.CSRC / "convres_bwd.cu").read_text()
+    tc = source[source.index("namespace tc {"):source.index("}  // namespace tc")]
+    assert "fmaf(" not in tc and "outer48" not in tc
+    for helper, ops in (("void wsum(float", ("ldmatrix_x4_trans(af[0]", "mma_bf16(")),
+                        ("void wcolsum(float", ("mma_bf16(s[nt], ones",)),
+                        ("void wload_b(unsigned", ("ldmatrix_x4_trans(bf[0]",))):
+        body = _body(tc, helper)
+        for op in ops:
+            assert op in body, (helper, op)
+    kernel = _body(tc, "convres_bwd_kernel(const bf16* __restrict__ x")
+    stage_b = _block(kernel, "if (!(SKIP & 8)) {")
+    assert kernel.count("SKIP & 8") == 1
+    for call, n in (("wsum(a3, ", 1), ("wsum(a2, ", 1), ("wsum(acc, ", 2),
+                    ("wcolsum(", 3), ("wload_b(", 6)):
+        assert stage_b.count(call) == n, call
+        assert kernel.count(call) == n, call      # nowhere outside stage B
+    for out in ("L::DW4", "L::DW1", "L::DB4", "L::DB1", "L::DB3", "L::DB2"):
+        assert out in stage_b, out
+    assert "wstore<false>(pb + L::DW3" in kernel and "wstore<false>(pb + L::DW2" in kernel
+    f32 = source[source.index("namespace f32 {"):source.index("}  // namespace f32")]
+    assert "fmaf(" in f32 and "mma" not in f32
+
+
 @pytest.mark.parametrize("name", ["convres_fwd", "convres_bwd", "probe_convres"])
 def test_convres_kernels_share_one_copy_of_the_gemm_helpers(name):
     """K2, K3 and P3 include csrc/convres_sm90.cuh (the implicit-GEMM pass

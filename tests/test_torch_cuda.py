@@ -187,11 +187,16 @@ def _convres_args(card, bsz, h, w, c, dtype, seed, cm=cr.MID_CHANNELS):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bsz,h,w,c", [(2, 32, 64, 64), (1, 40, 36, 32),
                                        (1, 16, 16, 128), (3, 8, 8, 64),
-                                       (1, 24, 40, 64)])
+                                       (1, 24, 40, 64), (1, 10, 20, 128),
+                                       (2, 9, 17, 64)])
 def test_convres_backward_kernel_matches_plain(card, dtype, bsz, h, w, c):
     """K3 (dx and the eight dW/db) against backward_reference, with b1/b2
     shifted by +2 so that a halo slip shows; 40x36 leaves partial tiles,
-    24x40 partial bf16 tiles (8 x 16 px) in both directions."""
+    24x40 partial bf16 tiles (8 x 16 px) in both directions, 10x20 at
+    cio 128 partial 4 x 16 tiles in both, and 9x17 over two samples
+    partial tiles in both directions at each sample's edge (the weight
+    sums' k-steps take whole tile rows, so a pixel outside the image
+    must add 0)."""
     args, gen = _convres_args(card, bsz, h, w, c, dtype, h * w + c + 1)
     dy = torch.randn(bsz, h, w, c, generator=gen, device=card).to(dtype)
     for residual in (True, False):
